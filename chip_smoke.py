@@ -7,8 +7,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              once) and print the build time and nvcc's register/spill
              summary.
 2. kernel  — hold each kernel against its plain PyTorch version on the
-             card at the shapes predict gives it, in float32 and
-             bfloat16, and time both with CUDA events.
+             card at the shapes the main paths give it and time both
+             with CUDA events: the ROIAlign forward at predict's two
+             calls and training's three (box, mask, and the mask
+             targets: one level, one channel), the backward at
+             training's two, in float32 and bfloat16, and the
+             accumulator copy on the four level shapes; then each
+             kernel's calls in one training step.
 3. serve   — default config (R50-FPN, 81 classes, FPN 256, one 1344²
              bucket, batch rungs (1, 4), uint8 input, float32) with
              seeded random weights: start the port's ServingServer,
@@ -18,9 +23,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              dispatched batch.
 4. reference — the card's forward against the same weights on the CPU
              on a small canvas (features, ROIAlign in context, box head).
-5. profile — one batch-4 forward at the 1344² bucket under
-             torch.profiler: device time by kernel and the device's busy
-             share of the forward's wall time.
+5. profile — one batch-4 forward at the 1344² bucket and, with the
+             train phase, one training step under torch.profiler:
+             device time by kernel and the device's busy share of the
+             wall time.
+6. train   — default training config (R50-FPN at full width and depth,
+             1344² canvas, batch 4, float32) with seeded random weights:
+             6 steps of Trainer.fit over the port's DetectionLoader, the
+             losses, grad_norm and step times, peak memory, and the
+             three kernels' launches per step.
+7. train_reference — one training step on the card against the CPU at
+             SMOKE widths on a 256² canvas: losses, every gradient and
+             every update, and the mask targets.
 
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
@@ -43,7 +57,8 @@ import urllib.request
 
 import numpy as np
 
-PHASES = ("build", "kernel", "serve", "reference", "profile")
+PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
+          "train_reference")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -55,6 +70,17 @@ LEVEL_STRIDES = (4, 8, 16, 32)
 CHANNELS = 256
 BATCH = 4
 CALLS = (("box_head", 7, 1000), ("mask_head", 14, 100))
+# training's ROIAlign backward calls: FRCNN.BATCH_PER_IM sampled ROIs
+# (box head) and their fg prefix (mask head)
+TRAIN_CALLS = (("box_head", 7, 512), ("mask_head", 14, 128))
+# training's third ROIAlign call, the mask targets: per image the 128 fg
+# ROIs, each aligned on its matched GT's 56² mask (one level, one
+# channel, stride 1) to the 28² mask resolution
+GT_MASK_SIZE = 56
+MASK_TARGETS = ("mask_targets", 28, 128)
+TRAIN_STEPS = 6
+# the record of each kernel that the kernels line reports
+STEP_CALL = "one training step"
 
 
 def log(msg: str) -> None:
@@ -77,7 +103,7 @@ def phase_build(kernels):
     from eksml_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    results = build.build([k.name for k in kernels])
+    results = build.build(sorted({k.library for k in kernels}))
     log(f"[build] {len(results)} kernel(s) in "
         f"{time.perf_counter() - t0:.1f}s wall")
     for name, r in results.items():
@@ -117,45 +143,86 @@ def make_rois(rng: np.random.RandomState, n: int) -> np.ndarray:
     return boxes.astype(np.float32)
 
 
-def bytes_and_ops(rois: np.ndarray, out_size: int, sampling: int,
-                  esize: int):
-    """Least bytes (each feature pixel the taps touch, read once, plus
-    the output written once) and the operations (a multiply and an add
-    per tap per channel) of one multilevel ROIAlign call on ``rois``
-    [B, N, 4], counted on this data."""
+def mask_target_inputs(rng: np.random.RandomState, n: int,
+                       m0: int = GT_MASK_SIZE):
+    """The mask-target call's inputs: ``n`` seeded binary GT masks
+    (filled ellipses) ``[n, m0, m0, 1]`` float32, and one fg ROI per mask
+    in that mask's pixel frame ``[n, 1, 4]``: the GT box ``(0, 0, m0,
+    m0)`` jittered by 10 % of its side, as a proposal of IoU >= 0.5
+    lies around its GT."""
+    yy, xx = np.mgrid[:m0, :m0] + 0.5
+    cy, cx = rng.uniform(0.3, 0.7, (2, n, 1, 1)) * m0
+    ry, rx = rng.uniform(0.2, 0.5, (2, n, 1, 1)) * m0
+    masks = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    rois = np.float32([0, 0, m0, m0]) + rng.randn(n, 4) * 0.1 * m0
+    return (masks[..., None].astype(np.float32),
+            rois[:, None, :].astype(np.float32))
+
+
+def touched_pixels(rois: np.ndarray, out_size: int, sampling: int,
+                   sizes, strides) -> int:
+    """Map pixels (per channel) that the taps of a multilevel ROIAlign
+    call on ``rois`` [B, N, 4] touch at least once, counted on this
+    data; the levels are ``sizes`` [(H, W), ...] at ``strides``."""
     from eksml_tpu_torch.ops.roi_align import assign_fpn_levels
 
     import torch
 
     b, n = rois.shape[:2]
-    levels = (assign_fpn_levels(torch.from_numpy(rois.reshape(-1, 4)))
+    levels = (assign_fpn_levels(torch.from_numpy(rois.reshape(-1, 4)),
+                                max_level=1 + len(strides))
               .numpy() - 2).reshape(b, n)
-    sizes = [CANVAS // s for s in LEVEL_STRIDES]
-    touched = [[np.zeros((sz, sz), bool) for sz in sizes] for _ in range(b)]
+    touched = [[np.zeros(hw, bool) for hw in sizes] for _ in range(b)]
     frac = (np.arange(sampling, dtype=np.float32) + 0.5) / sampling
     grid = (np.arange(out_size, dtype=np.float32)[:, None]
             + frac[None, :]).reshape(-1)
     for bi in range(b):
         for ri in range(n):
             lv = levels[bi, ri]
-            sc = np.float32(1.0 / LEVEL_STRIDES[lv])
+            sc = np.float32(1.0 / strides[lv])
             x1, y1, x2, y2 = rois[bi, ri] * sc
             bh = max(y2 - y1, np.float32(1e-4)) / np.float32(out_size)
             bw = max(x2 - x1, np.float32(1e-4)) / np.float32(out_size)
             ys = np.floor(y1 - np.float32(0.5) + grid * bh)
             xs = np.floor(x1 - np.float32(0.5) + grid * bw)
-            lim = sizes[lv] - 1
             rows = np.unique(np.concatenate([ys, ys + 1]))
             cols = np.unique(np.concatenate([xs, xs + 1]))
-            rows = rows[(rows >= 0) & (rows <= lim)].astype(int)
-            cols = cols[(cols >= 0) & (cols <= lim)].astype(int)
+            rows = rows[(rows >= 0) & (rows <= sizes[lv][0] - 1)].astype(int)
+            cols = cols[(cols >= 0) & (cols <= sizes[lv][1] - 1)].astype(int)
             if rows.size and cols.size:
                 touched[bi][lv][np.ix_(rows, cols)] = True
-    pixels = sum(int(t.sum()) for per_b in touched for t in per_b)
-    out_elems = b * n * out_size * out_size * CHANNELS
-    nbytes = pixels * CHANNELS * esize + out_elems * esize
+    return sum(int(t.sum()) for per_b in touched for t in per_b)
+
+
+def bytes_and_ops(rois: np.ndarray, out_size: int, sampling: int,
+                  esize: int, backward: bool = False, sizes=None,
+                  strides=LEVEL_STRIDES, channels: int = CHANNELS):
+    """Least bytes and the operations (a multiply and an add per tap per
+    channel) of one multilevel ROIAlign call on ``rois`` [B, N, 4] over
+    levels ``sizes`` [(H, W), ...] at ``strides`` (default: P2..P5 of the
+    canvas) with ``channels`` channels.  Forward: each map pixel the taps
+    touch, read once, plus the output written once, in the map's dtype.
+    Backward: the output gradient read once in its dtype, plus each
+    touched accumulator pixel read and written once in float32."""
+    if sizes is None:
+        sizes = [(CANVAS // s, CANVAS // s) for s in strides]
+    b, n = rois.shape[:2]
+    pixels = touched_pixels(rois, out_size, sampling, sizes, strides)
+    out_elems = b * n * out_size * out_size * channels
+    if backward:
+        nbytes = out_elems * esize + pixels * channels * 4 * 2
+    else:
+        nbytes = pixels * channels * esize + out_elems * esize
     ops = out_elems * sampling * sampling * 4 * 2
     return nbytes, ops
+
+
+def bound_of(nbytes: int, ops: int):
+    """(bound ms, what bounds it) on the data-sheet peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def time_ms(fn, iters: int, warmup: int) -> float:
@@ -183,10 +250,10 @@ def bf16_ulp(x):
     return torch.where(a == 0, torch.zeros_like(a), ulp)
 
 
-def phase_kernel(kernel, seed: int):
+def phase_kernel(kernels, seed: int):
+    """Every kernel against its plain version at the main paths' shapes;
+    returns {kernel name: [records]}."""
     import torch
-
-    from eksml_tpu_torch.ops.roi_align import batched_multilevel_roi_align
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -194,59 +261,250 @@ def phase_kernel(kernel, seed: int):
         torch.randn((BATCH, CANVAS // s, CANVAS // s, CHANNELS),
                     generator=gen, device=dev) for s in LEVEL_STRIDES)
     rng = np.random.RandomState(seed)
-    rois_all = np.stack([make_rois(rng, max(n for _, _, n in CALLS))
-                         for _ in range(BATCH)])
+    records = {
+        kernels.fwd.name: kernel_forward(
+            kernels.fwd, feats32, rng, np.random.RandomState(seed + 1)),
+        kernels.bwd.name: kernel_backward(kernels, feats32, rng, gen),
+        kernels.copy.name: kernel_copy(kernels.copy, feats32, gen),
+    }
+    del feats32
+    torch.cuda.empty_cache()
+    return records
+
+
+def _check(name, call, dtype, diff, want, scale):
+    """float32: max error within 1e-5 of ``scale``; bfloat16: within one
+    bfloat16 ulp of the plain value plus that allowance."""
+    import torch
+
+    err = float(diff.max())
+    slack = 1e-5 * scale
+    if dtype == torch.float32:
+        ok = err <= slack
+        tol_text = f"1e-5*scale = {slack:.3g}"
+    else:
+        ok = bool((diff <= bf16_ulp(want) + slack).all())
+        tol_text = "1 bf16 ulp of the plain value + 1e-5*scale"
+    dname = str(dtype).replace("torch.", "")
+    log(f"[kernel] {name} {call} {dname}: max|kernel-plain| = {err:.3g} "
+        f"(scale {scale:.3g}, tolerance {tol_text}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{call} {dname}: max error {err}")
+    return err
+
+
+def kernel_forward(kernel, feats32, rng, mask_rng):
+    """The forward kernel against ``batched_multilevel_roi_align`` at
+    every call the main paths make: predict's two and training's box and
+    mask calls on P2..P5 in float32 and bfloat16, and training's mask
+    targets (float32, one level, one channel) on seeded masks from
+    ``mask_rng``; then the sum of training's three calls in float32."""
+    import torch
+
+    dev = feats32[0].device
+    n_max = max(n for _, _, n in CALLS + TRAIN_CALLS)
+    rois_all = np.stack([make_rois(rng, n_max) for _ in range(BATCH)])
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         feats = tuple(f.to(dtype) for f in feats32)
         fmax = max(float(f.float().abs().max()) for f in feats)
-        for call, out_size, n in CALLS:
+        for path, calls in (("predict", CALLS), ("train", TRAIN_CALLS)):
+            for call, out_size, n in calls:
+                rois_np = np.ascontiguousarray(rois_all[:, :n])
+                records.append(_forward_call(
+                    kernel, path, call, feats, rois_np, LEVEL_STRIDES,
+                    out_size, fmax)[0])
+        del feats
+    call, out_size, n = MASK_TARGETS
+    masks, mrois = mask_target_inputs(mask_rng, BATCH * n)
+    rec, got, want = _forward_call(
+        kernel, "train", call, (torch.from_numpy(masks).to(dev),), mrois,
+        (1,), out_size, 1.0)
+    # the targets are the samples thresholded at 0.5: a sum in another
+    # order may flip a pixel only where the plain value lies at 0.5
+    flips = (got >= 0.5) != (want >= 0.5)
+    near = (want - 0.5).abs() <= 1e-6
+    log(f"[kernel]   mask targets (>= 0.5) differ at {int(flips.sum())} of "
+        f"{flips.numel()} pixels, {int((flips & near).sum())} of them "
+        "within 1e-6 of 0.5")
+    if bool((flips & ~near).any()):
+        raise AssertionError("the mask targets of the kernel and of the "
+                             "plain version differ away from 0.5")
+    records.append(rec)
+    records.append(_step_record([r for r in records if r["path"] == "train"
+                                 and r["dtype"] == "float32"]))
+    return records
+
+
+def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
+                  scale):
+    """One forward call checked against the plain version (``scale``:
+    the largest feature magnitude) and timed beside it; returns the
+    record and both outputs."""
+    import torch
+
+    from eksml_tpu_torch.ops.roi_align import batched_multilevel_roi_align
+
+    dtype = feats[0].dtype
+    b, n = rois_np.shape[:2]
+    rois = torch.from_numpy(rois_np).to(feats[0].device)
+    got = kernel(feats, rois, strides, out_size)
+    want = batched_multilevel_roi_align(feats, rois, strides, out_size)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = _check(kernel.name, f"{path} {call} o={out_size} B*N={b}*{n} "
+                 f"C={feats[0].shape[-1]} levels={len(feats)}", dtype, diff,
+                 want.float(), scale)
+    ms = time_ms(lambda: kernel(feats, rois, strides, out_size), iters=20,
+                 warmup=3)
+    plain_ms = time_ms(lambda: batched_multilevel_roi_align(
+        feats, rois, strides, out_size), iters=3, warmup=1)
+    nbytes, ops = bytes_and_ops(
+        rois_np, out_size, 2, feats[0].element_size(),
+        sizes=[tuple(f.shape[1:3]) for f in feats], strides=strides,
+        channels=feats[0].shape[-1])
+    return (_record(path, call, dtype, out_size, b * n, err, ms, plain_ms,
+                    None, nbytes, ops), got, want)
+
+
+def _step_record(records):
+    """One training step's calls of a kernel (``records``, float32),
+    summed: the times as measured call by call, the bound from the
+    summed bytes and operations."""
+    total = {k: sum(r[k] for r in records)
+             for k in ("ms", "plain_ms", "bytes", "ops")}
+    bound_ms, bound_by = bound_of(total["bytes"], total["ops"])
+    log(f"[kernel]   {STEP_CALL} ({' + '.join(r['call'] for r in records)}"
+        f"): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"bound {bound_ms * 1e3:.1f} us ({total['bytes'] / 1e6:.1f} MB, "
+        f"{bound_by}), {bound_ms / total['ms'] * 100:.1f}% of bound")
+    return {"path": "train", "call": STEP_CALL, "dtype": "float32",
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            **total}
+
+
+def kernel_backward(kernels, feats32, rng, gen):
+    """The backward kernel against ``roi_align_backward_plain`` at
+    training's two calls, with the spread between two launches."""
+    import torch
+
+    from eksml_tpu_torch.ops.roi_align import roi_align_backward_plain
+
+    dev = feats32[0].device
+    kernel = kernels.bwd
+    rois_all = np.stack([make_rois(rng, max(n for _, _, n in TRAIN_CALLS))
+                         for _ in range(BATCH)])
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = tuple(f.to(dtype) for f in feats32)
+        for call, out_size, n in TRAIN_CALLS:
             rois_np = np.ascontiguousarray(rois_all[:, :n])
             rois = torch.from_numpy(rois_np).to(dev)
-            got = kernel(feats, rois, LEVEL_STRIDES, out_size)
-            want = batched_multilevel_roi_align(feats, rois, LEVEL_STRIDES,
-                                                out_size)
+            g = torch.randn((BATCH, n, out_size, out_size, CHANNELS),
+                            generator=gen, device=dev).to(dtype)
+
+            def fresh():
+                return [torch.zeros(f.shape, dtype=torch.float32,
+                                    device=dev) for f in feats]
+
+            got = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
+            again = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
+            want = roi_align_backward_plain(feats, rois, g, LEVEL_STRIDES,
+                                            out_size)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                tol = 1e-5 * fmax
-                ok = err <= tol
-                tol_text = f"1e-5*max|feat| = {tol:.3g}"
-            else:
-                slack = 1e-5 * fmax
-                ok = bool((diff <= bf16_ulp(want.float()) + slack).all())
-                tol_text = "1 bf16 ulp of the plain value + 1e-5*max|feat|"
-            name = str(dtype).replace("torch.", "")
-            log(f"[kernel] {kernel.name} {call} o={out_size} "
-                f"B*N={BATCH}*{n} {name}: max|kernel-plain| = {err:.3g} "
-                f"(tolerance {tol_text}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(
-                    f"{kernel.name} disagrees with its plain version at "
-                    f"{call} {name}: max error {err}")
-            ms = time_ms(lambda: kernel(feats, rois, LEVEL_STRIDES,
-                                        out_size), iters=20, warmup=3)
-            plain_ms = time_ms(lambda: batched_multilevel_roi_align(
-                feats, rois, LEVEL_STRIDES, out_size), iters=3, warmup=1)
+            spread = max(float((a - b).abs().max())
+                         for a, b in zip(got, again))
+            errs = []
+            for lv, (a, w) in enumerate(zip(got, want)):
+                w = w.float()
+                scale = max(float(w.abs().max()), 1e-30)
+                errs.append(_check(kernel.name, f"{call} o={out_size} "
+                                   f"B*N={BATCH}*{n} P{lv + 2}", dtype,
+                                   (a.to(dtype).float() - w).abs(), w, scale))
+            del got, again, want
+            accs = fresh()
+            ms = time_ms(lambda: kernel(accs, rois, g, LEVEL_STRIDES,
+                                        out_size), iters=10, warmup=2)
+            plain_ms = time_ms(lambda: roi_align_backward_plain(
+                feats, rois, g, LEVEL_STRIDES, out_size), iters=2, warmup=1)
+            del accs
             nbytes, ops = bytes_and_ops(rois_np, out_size, 2,
-                                        feats[0].element_size())
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_FLOPS_PER_S * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            log(f"[kernel]   kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {bound_ms * 1e3:.1f} us "
-                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
-                f"{bound_ms / ms * 100:.1f}% of bound")
-            records.append({
-                "call": call, "dtype": name, "out_size": out_size,
-                "rois": BATCH * n, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "ops": ops})
-    del feats32
-    torch.cuda.empty_cache()
+                                        g.element_size(), backward=True)
+            rec = _record("train", call, dtype, out_size, BATCH * n,
+                          max(errs), ms, plain_ms, None, nbytes, ops)
+            rec["run_to_run_max_abs_diff"] = spread
+            log(f"[kernel]   two launches on the same inputs differ by at "
+                f"most {spread:.3g} (float32 atomics, order varies)")
+            records.append(rec)
+    records.append(_step_record([r for r in records
+                                 if r["dtype"] == "float32"]))
     return records
+
+
+def kernel_copy(kernel, feats32, gen):
+    """The copy kernel bitwise against ``clone()`` on the four level
+    shapes of the float32 accumulators, timed beside ``clone()`` and
+    ``dst.copy_(src)``; then one training step's seeding (two backward
+    calls, four levels each) timed as a whole."""
+    import torch
+
+    srcs = [torch.randn(f.shape, generator=gen, device=f.device)
+            for f in feats32]
+    dsts = [torch.empty_like(s) for s in srcs]
+    records = []
+    for src, dst in zip(srcs, dsts):
+        got = kernel(src)
+        want = src.clone()
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        shape = "x".join(str(d) for d in src.shape)
+        log(f"[kernel] {kernel.name} [{shape}] float32: bitwise equal to "
+            f"clone() {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{kernel.name} differs from clone() at "
+                                 f"[{shape}]")
+        del got, want
+        ms = time_ms(lambda: kernel(src), iters=20, warmup=3)
+        plain_ms = time_ms(lambda: src.clone(), iters=20, warmup=3)
+        library_ms = time_ms(lambda: dst.copy_(src), iters=20, warmup=3)
+        records.append(_record("train", f"[{shape}]", torch.float32, None,
+                               None, 0.0, ms, plain_ms, library_ms,
+                               2 * src.numel() * 4, 0))
+    backward_calls = 2
+    step = [s for _ in range(backward_calls) for s in srcs]
+    pairs = [(s, d) for _ in range(backward_calls)
+             for s, d in zip(srcs, dsts)]
+    ms = time_ms(lambda: [kernel(s) for s in step], iters=10, warmup=2)
+    plain_ms = time_ms(lambda: [s.clone() for s in step], iters=10,
+                       warmup=2)
+    library_ms = time_ms(lambda: [d.copy_(s) for s, d in pairs], iters=10,
+                         warmup=2)
+    log(f"[kernel] {kernel.name} {STEP_CALL} ({backward_calls} backward "
+        f"calls x {len(srcs)} levels):")
+    rec = _record("train", STEP_CALL, torch.float32, None, None, 0.0, ms,
+                  plain_ms, library_ms,
+                  sum(2 * s.numel() * 4 for s in step), 0)
+    records.append(rec)
+    del srcs, dsts, step, pairs
+    return records
+
+
+def _record(path, call, dtype, out_size, rois, err, ms, plain_ms,
+            library_ms, nbytes, ops):
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    log(f"[kernel]   kernel {ms:.4f} ms, plain {plain_ms:.3f} ms"
+        + (f", library {library_ms:.4f} ms" if library_ms is not None
+           else "")
+        + f", bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP), {bound_ms / ms * 100:.1f}% of bound")
+    return {"path": path, "call": call,
+            "dtype": str(dtype).replace("torch.", ""),
+            "out_size": out_size, "rois": rois, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
 
 
 # ---------------------------------------------------------------------
@@ -369,11 +627,13 @@ def phase_serve(cfg, kernels, seed: int):
             f"{serve_peak / 2 ** 30:.2f} GiB; launches {launches}")
         assert rpc == 0, f"request_path_compiles = {rpc}"
         assert max(fills) == 4, f"no batch of 4 formed: fills {fills}"
-        for name, count in launches.items():
-            assert count > 0, f"{name} never launched on the main path"
-            assert count == 2 * dispatched, (
-                f"{name}: {count} launches for {dispatched} batches "
-                "(predict makes 2 ROIAlign calls per forward)")
+        fwd = kernels.fwd.name
+        assert launches[fwd] > 0, f"{fwd} never launched on the main path"
+        assert launches[fwd] == 2 * dispatched, (
+            f"{fwd}: {launches[fwd]} launches for {dispatched} batches "
+            "(predict makes 2 ROIAlign calls per forward)")
+        assert all(n == 0 for k, n in launches.items() if k != fwd), (
+            f"a backward kernel launched while serving: {launches}")
         return engine, {"warmup_s": warm_s, "wall_s": wall,
                         "images_per_s": len(images) / wall,
                         "latency_ms": lat, "spans_ms": spans,
@@ -443,9 +703,42 @@ def phase_reference(model_gpu, seed: int, tol: float = 1e-3):
 # ---------------------------------------------------------------------
 
 
-def phase_profile(engine, seed: int, top: int = 15):
+def profile_window(label: str, fn, top: int = 15):
+    """Run ``fn`` once under torch.profiler and print the device time by
+    kernel and the device's busy share of the wall time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): an operator's own entry
+    # also carries the device time of the kernels it launched
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms * 100:.1f}%), "
+        f"{len(kernels)} kernel names")
+    ours = ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
+            "copy_to_global_kernel")
+    for i, (name, ms, count) in enumerate(kernels):
+        if i < top or any(o in name for o in ours):
+            log(f"[profile]   {ms:8.2f} ms "
+                f"{ms / max(busy_ms, 1e-9) * 100:5.1f}% x{count:<5d} "
+                f"{name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def phase_profile(engine, seed: int):
+    import torch
 
     bh, bw = engine.buckets[-1]
     rng = np.random.RandomState(seed)
@@ -453,23 +746,223 @@ def phase_profile(engine, seed: int, top: int = 15):
     hw = np.tile(np.asarray([[bh, bw]], np.float32), (4, 1))
     engine.infer(images, hw, len(engine.buckets) - 1, rung=4)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.infer(images, hw, len(engine.buckets) - 1, rung=4)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda k: -k[1])
-    busy_ms = sum(k[1] for k in kernels)
-    log(f"[profile] batch-4 forward at {bh}x{bw}: wall {wall_ms:.1f} ms "
-        f"(profiled), device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms * 100:.1f}%), {len(kernels)} kernel names")
-    for name, ms, count in kernels[:top]:
-        log(f"[profile]   {ms:8.2f} ms {ms / max(busy_ms, 1e-9) * 100:5.1f}%"
-            f" x{count:<5d} {name[:90]}")
+    profile_window(f"batch-4 forward at {bh}x{bw}", lambda: engine.infer(
+        images, hw, len(engine.buckets) - 1, rung=4))
+
+
+# ---------------------------------------------------------------------
+# phase 6: training steps at full width
+# ---------------------------------------------------------------------
+
+
+def train_config():
+    from eksml_tpu_torch.config import config, finalize_configs
+
+    config.freeze(False)
+    config.update_args([f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
+                        "TRAIN.LOG_PERIOD=1"])
+    return finalize_configs(is_training=True)
+
+
+def phase_train(cfg, kernels, seed: int, extra_batches: int = 0):
+    """``TRAIN_STEPS`` steps of ``Trainer.fit`` at the default config:
+    step 1 (cuDNN autotune) apart from the median of the rest, peak
+    memory after step 1, the kernels' launches per step, and the checks
+    that the step trained what it must and froze the rest."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+    from eksml_tpu_torch.train import Trainer
+
+    ds = SyntheticDataset(num_images=2 * BATCH, height=800, width=1333,
+                          max_boxes=8, num_classes=cfg.DATA.NUM_CLASSES,
+                          seed=seed)
+    loader = DetectionLoader(ds.records(), cfg, BATCH, seed=seed,
+                             with_masks=cfg.MODE_MASK, gt_mask_size=56)
+    # built ahead, so the step times hold no host image work
+    t0 = time.perf_counter()
+    batches = list(loader.batches(TRAIN_STEPS + extra_batches))
+    log(f"[train] {len(batches)} batches of {BATCH} built in "
+        f"{time.perf_counter() - t0:.1f}s; canvas "
+        f"{batches[0]['images'].shape[1:3]}, {batches[0]['images'].dtype}")
+    trainer = Trainer(cfg, logdir=".", device="cuda")
+    model = trainer.init_state(init_params(
+        cfg, torch.Generator().manual_seed(seed)))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    it = iter(batches)
+
+    # the main path's run: every count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    rows = trainer.fit(it, 1)
+    torch.cuda.synchronize()
+    step1 = {k.name: k.launches for k in kernels}
+    torch.cuda.reset_peak_memory_stats()
+    rows += trainer.fit(it, TRAIN_STEPS, start_step=1)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+
+    for r in rows:
+        log(f"[train] step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.5g}" for k in (
+                "rpn_cls_loss", "rpn_box_loss", "frcnn_cls_loss",
+                "frcnn_box_loss", "mrcnn_loss", "total_loss", "grad_norm",
+                "learning_rate")) + f"; {r['step_time_s'] * 1e3:.1f} ms")
+    times = sorted(r["step_time_s"] for r in rows[1:])
+    median = times[len(times) // 2]
+    log(f"[train] step 1 (cuDNN autotune) {rows[0]['step_time_s']:.2f} s; "
+        f"steps 2-{TRAIN_STEPS} median {median * 1e3:.1f} ms "
+        f"(min {times[0] * 1e3:.1f}, max {times[-1] * 1e3:.1f}) = "
+        f"{BATCH / median:.3f} images/s; peak torch.cuda."
+        f"max_memory_allocated after step 1 {peak / 2 ** 30:.2f} GiB")
+    log(f"[train] launches in step 1 {step1}; in all {TRAIN_STEPS} steps "
+        f"{launches}")
+
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        assert not bad, f"step {r['step']}: non-finite {bad}"
+    want = {kernels.fwd.name: 3, kernels.bwd.name: 2,
+            kernels.copy.name: 2 * len(LEVEL_STRIDES)}
+    assert step1 == want, (
+        f"launches in one step {step1}, expected {want} (ROIAlign forward: "
+        "box, mask, mask targets; backward: box, mask; copy: 4 levels x 2)")
+    assert launches == {k: n * TRAIN_STEPS for k, n in want.items()}, launches
+    after = model.state_dict()
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    still = sorted(n for n in trainable if torch.equal(before[n], after[n]))
+    moved = sorted(n for n in set(before) - trainable
+                   if not torch.equal(before[n], after[n]))
+    log(f"[train] {len(trainable)} trainable tensors, all changed: "
+        f"{not still}; {len(before) - len(trainable)} frozen tensors and "
+        f"buffers, none changed: {not moved}")
+    assert not still, f"trainable tensors that did not change: {still}"
+    assert not moved, f"frozen tensors that changed: {moved}"
+    return trainer, it, {"rows": rows, "median_s": median,
+                         "images_per_s": BATCH / median, "peak_bytes": peak,
+                         "launches": launches, "launches_step1": step1}
+
+
+# ---------------------------------------------------------------------
+# phase 7: one training step, the card against the CPU
+# ---------------------------------------------------------------------
+
+
+def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
+                          update_tol: float = 1e-3):
+    """One ``make_train_step`` at SMOKE widths on an ``img``² canvas,
+    batch 2, from one set of weights, one batch and one set of
+    priorities on the card and on the CPU.  The losses, ``grad_norm``
+    and every gradient tensor agree within ``tol`` of each tensor's
+    largest magnitude; every parameter update within ``update_tol`` of
+    its largest magnitude (a float32 ulp of the parameter is up to ~1e-4
+    of the update at this learning rate); the mask targets agree exactly
+    except at pixels whose plain value lies within 1e-6 of 0.5.  Returns
+    the worst errors and the number of gradient tensors compared."""
+    import torch
+
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import make_synthetic_batch
+    from eksml_tpu_torch.device import resolve_device
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.ops.roi_align import batched_multilevel_roi_align
+    from eksml_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = resolve_device("cuda")
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + [
+        f"PREPROC.MAX_SIZE={img}",
+        f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({img},{img})", "TRAIN.BASE_LR=0.1",
+        "TRAIN.WARMUP_STEPS=0", "TRAIN.BATCH_SIZE_PER_CHIP=2"])
+    cfg.freeze()
+    batch = make_synthetic_batch(cfg, batch_size=2, image_size=img,
+                                 seed=seed, gt_mask_size=28)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()
+             if k not in ("image_scale", "image_id")}
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    results = {}
+    for where in ("cpu", dev):
+        model = MaskRCNN.from_config(cfg)
+        model.load_state_dict(params)
+        model.to(where).train()
+        pri = model.make_priorities(
+            (2, img, img, cfg.DATA.MAX_GT_BOXES),
+            torch.Generator().manual_seed(seed))
+        opt, sched = make_optimizer(model, cfg)
+        grads = {}
+        for n, p in model.named_parameters():
+            if p.requires_grad:     # the raw gradient, as backward gives it
+                p.register_hook(lambda g, n=n: grads.__setitem__(
+                    n, g.detach().cpu().clone()))
+        metrics = make_train_step(
+            model, opt, sched, float(cfg.TRAIN.GRADIENT_CLIP))(
+            {k: v.to(where) for k, v in batch.items()},
+            {k: v.to(where) for k, v in pri.items()}, 0)
+        updates = {n: (p.detach().cpu() - params[n])
+                   for n, p in model.named_parameters()}
+        results[str(where)] = ({k: float(v) for k, v in metrics.items()},
+                               grads, updates, model)
+    (lc, gc, uc, mc), (lg, gg, ug, mg) = results["cpu"], results[str(dev)]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc}
+    assert gc and set(gg) == set(gc), set(gg) ^ set(gc)
+    grad_err = {n: rel(gg[n], gc[n]) for n in gc}
+    upd_err = {n: rel(ug[n], uc[n]) for n in uc if uc[n].abs().max() > 0}
+
+    # mask targets: jittered GT boxes on random disc masks
+    rng = np.random.RandomState(seed)
+    k, g, m0 = 16, cfg.DATA.MAX_GT_BOXES, 28
+    gt = batch["gt_boxes"].numpy().copy()
+    gt[:, :, 2:] = np.maximum(gt[:, :, 2:], gt[:, :, :2] + 4)
+    yy, xx = np.mgrid[:m0, :m0]
+    masks = np.stack([((yy - rng.rand() * m0) ** 2
+                       + (xx - rng.rand() * m0) ** 2
+                       < (rng.rand() * m0) ** 2) for _ in range(2 * g)]
+                     ).reshape(2, g, m0, m0).astype(np.float32)
+    matched = rng.randint(0, g, (2, k))
+    rois = (gt[np.arange(2)[:, None], matched]
+            + rng.randn(2, k, 4) * 5).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (rois, matched, gt, masks)]
+    t_cpu = mc._mask_targets(*args)
+    t_gpu = mg._mask_targets(*[a.to(dev) for a in args]).cpu()
+    gb = gt[np.arange(2)[:, None], matched]
+    gw = np.maximum(gb[..., 2] - gb[..., 0], 1e-4)
+    gh = np.maximum(gb[..., 3] - gb[..., 1], 1e-4)
+    mrois = np.stack([(rois[..., 0] - gb[..., 0]) / gw * m0,
+                      (rois[..., 1] - gb[..., 1]) / gh * m0,
+                      (rois[..., 2] - gb[..., 0]) / gw * m0,
+                      (rois[..., 3] - gb[..., 1]) / gh * m0], -1)
+    sampled = batched_multilevel_roi_align(
+        [torch.from_numpy(masks[np.arange(2)[:, None], matched]
+                          .reshape(-1, m0, m0, 1))],
+        torch.from_numpy(mrois.astype(np.float32)).reshape(-1, 1, 4), (1,),
+        28).reshape(2, k, 28, 28)
+    differ = t_cpu != t_gpu
+    near = (sampled - 0.5).abs() <= 1e-6
+    log(f"[train_reference] card vs CPU, SMOKE widths, {img}², batch 2: "
+        "losses and grad_norm max rel "
+        f"{max(loss_err.values()):.2e}; gradients max "
+        f"|diff|/max|CPU| {max(grad_err.values()):.2e} over {len(gc)} "
+        f"tensors (worst {max(grad_err, key=grad_err.get)}); updates "
+        f"{max(upd_err.values()):.2e} over {len(upd_err)} tensors; mask "
+        f"targets differ at {int(differ.sum())} of {differ.numel()} pixels, "
+        f"{int((differ & near).sum())} of them within 1e-6 of 0.5 "
+        f"(tolerances {tol} and {update_tol})")
+    assert max(loss_err.values()) <= tol, loss_err
+    assert max(grad_err.values()) <= tol, {
+        n: e for n, e in grad_err.items() if e > tol}
+    assert max(upd_err.values()) <= update_tol, {
+        n: e for n, e in upd_err.items() if e > update_tol}
+    assert not (differ & ~near).any(), "mask targets differ"
+    return {"losses": max(loss_err.values()),
+            "gradients": max(grad_err.values()),
+            "updates": max(upd_err.values()), "gradient_tensors": len(gc)}
 
 
 # ---------------------------------------------------------------------
@@ -492,53 +985,75 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
-    from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
+    from eksml_tpu_torch.ops.roi_align import KERNELS
 
-    kernels = [dispatch_roi_align]
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
 
     # the kernels build first whatever phases run
-    phase_build(kernels)
-    records = phase_kernel(dispatch_roi_align, args.seed) \
-        if "kernel" in phases else []
+    phase_build(KERNELS)
+    records = phase_kernel(KERNELS, args.seed) if "kernel" in phases else {}
     engine = serve = None
     if {"serve", "reference", "profile"} & set(phases):
-        engine, serve = phase_serve(serve_config(), kernels, args.seed)
+        engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
     if "reference" in phases:
         phase_reference(engine.model, args.seed)
     if "profile" in phases:
         phase_profile(engine, args.seed)
     if engine is not None:
         engine.close()
+    train = None
+    if "train" in phases:
+        trainer, batches, train = phase_train(
+            train_config(), KERNELS, args.seed,
+            extra_batches=1 if "profile" in phases else 0)
+        if "profile" in phases:
+            profile_window(
+                f"training step {TRAIN_STEPS + 1} at {CANVAS}x{CANVAS}, "
+                f"batch {BATCH}", lambda: trainer.fit(
+                    batches, TRAIN_STEPS + 1, start_step=TRAIN_STEPS))
+        del trainer, batches
+        torch.cuda.empty_cache()
+    if "train_reference" in phases:
+        phase_train_reference(args.seed)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s")
 
     if records:
-        k = dispatch_roi_align
-        main_rec = next(r for r in records if r["dtype"] == "float32"
-                        and r["call"] == "box_head")
-        line = {"kernels": [{
-            "name": k.name,
-            "route": "cuda",
-            "source": k.source,
-            "replaces": k.replaces,
-            # counted only in the serve phase's run of the main path
-            "launches": serve["launches"][k.name] if serve else None,
-            "max_abs_err": max(r["max_abs_err"] for r in records
-                               if r["dtype"] == "float32"),
-            "ms": main_rec["ms"],
-            "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"],
-            "bound_by": main_rec["bound_by"],
-            "library_ms": None,
-            "library": "none",
-            "kernel_ms": main_rec["ms"],
-            "bound_us": main_rec["bound_ms"] * 1e3,
-            "shapes": records,
-        }]}
-        print(json.dumps(line), flush=True)
+        out = []
+        for k in KERNELS:
+            recs = records[k.name]
+            f32 = [r for r in recs if r["dtype"] == "float32"]
+            # the figure for the line: the kernel's calls in one training
+            # step, float32 (the train path runs all three kernels)
+            main_rec = next(r for r in f32 if r["call"] == STEP_CALL)
+            launches = None
+            if train is not None:        # the train path runs all three
+                launches = train["launches"][k.name]
+            elif serve is not None and k is KERNELS.fwd:
+                launches = serve["launches"][k.name]
+            out.append({
+                "name": k.name,
+                "route": "cuda",
+                "source": k.source,
+                "replaces": k.replaces,
+                "launches": launches,
+                "launches_by_path": {
+                    "serve": serve["launches"][k.name] if serve else None,
+                    "train": train["launches"][k.name] if train else None},
+                "max_abs_err": max(r["max_abs_err"] for r in f32),
+                "figure": f"{STEP_CALL}, float32",
+                "ms": main_rec["ms"],
+                "plain_ms": main_rec["plain_ms"],
+                "bound_ms": main_rec["bound_ms"],
+                "bound_by": main_rec["bound_by"],
+                "library_ms": main_rec["library_ms"],
+                "library": ("dst.copy_(src)" if k is KERNELS.copy
+                            else "none"),
+                "shapes": recs,
+            })
+        print(json.dumps({"kernels": out}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     if set(phases) != set(PHASES):
         return 0

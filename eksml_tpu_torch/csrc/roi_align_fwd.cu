@@ -33,70 +33,7 @@
 // staging a ROI's feature footprint in shared memory and 16-byte vector
 // loads are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define EKSML_MAX_LEVELS 4
-
-struct LevelTable {
-  const void* ptr[EKSML_MAX_LEVELS];
-  int h[EKSML_MAX_LEVELS];
-  int w[EKSML_MAX_LEVELS];
-  float scale[EKSML_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float load_as_float(const float* p) {
-  return __ldg(p);
-}
-
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_from_float(float* p, float v) {
-  *p = v;
-}
-
-__device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// One bilinear sample's four taps: pixel offsets (y * W + x) and
-// weights; a tap outside the map has weight 0 (and reads pixel 0).
-struct Taps {
-  int off[4];
-  float w[4];
-};
-
-__device__ __forceinline__ Taps make_taps(float y, float x, int H, int W) {
-  const float y0 = floorf(y);
-  const float x0 = floorf(x);
-  const float ly = y - y0;
-  const float lx = x - x0;
-  const float hy = 1.0f - ly;
-  const float hx = 1.0f - lx;
-  // bounds in float, before any conversion: a NaN or huge coordinate
-  // fails every test and never becomes an index
-  const bool row0 = y0 >= 0.0f && y0 <= (float)(H - 1);
-  const bool row1 = y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1);
-  const bool col0 = x0 >= 0.0f && x0 <= (float)(W - 1);
-  const bool col1 = x0 + 1.0f >= 0.0f && x0 + 1.0f <= (float)(W - 1);
-  const int iy = row0 ? (int)y0 : 0;
-  const int ix = col0 ? (int)x0 : 0;
-  const int iy1 = row1 ? (int)y0 + 1 : 0;
-  const int ix1 = col1 ? (int)x0 + 1 : 0;
-  Taps t;
-  t.off[0] = iy * W + ix;
-  t.w[0] = (row0 && col0) ? hy * hx : 0.0f;
-  t.off[1] = iy * W + ix1;
-  t.w[1] = (row0 && col1) ? hy * lx : 0.0f;
-  t.off[2] = iy1 * W + ix;
-  t.w[2] = (row1 && col0) ? ly * hx : 0.0f;
-  t.off[3] = iy1 * W + ix1;
-  t.w[3] = (row1 && col1) ? ly * lx : 0.0f;
-  return t;
-}
+#include "roi_align_common.cuh"
 
 // grid = (B * N ROIs, out_size rows); threads stride over channels.  The
 // block first writes its row's out_size * sampling^2 tap tables to shared
@@ -116,25 +53,8 @@ __global__ void roi_align_fwd_kernel(LevelTable lv, int num_levels,
   const int b = r / n_rois;
 
   if (threadIdx.x == 0) {
-    const float x1 = rois[4 * (size_t)r + 0];
-    const float y1 = rois[4 * (size_t)r + 1];
-    const float x2 = rois[4 * (size_t)r + 2];
-    const float y2 = rois[4 * (size_t)r + 3];
-    // FPN heuristic, in the plain version's order of operations
-    const float w = fmaxf(x2 - x1, 0.0f);
-    const float h = fmaxf(y2 - y1, 0.0f);
-    const float sz = sqrtf(fmaxf(w * h, 1e-8f));
-    float lvl = floorf(__fadd_rn(4.0f, log2f(__fadd_rn(sz / 224.0f, 1e-8f))));
-    lvl = fminf(fmaxf(lvl, (float)min_level),
-                (float)(min_level + num_levels - 1));
-    const int li = (int)lvl - min_level;
-    const float s = lv.scale[li];
-    const float rx1 = x1 * s, ry1 = y1 * s, rx2 = x2 * s, ry2 = y2 * s;
-    s_level = li;
-    s_geom[0] = ry1 - 0.5f;
-    s_geom[1] = rx1 - 0.5f;
-    s_geom[2] = fmaxf(ry2 - ry1, 1e-4f) / (float)out_size;
-    s_geom[3] = fmaxf(rx2 - rx1, 1e-4f) / (float)out_size;
+    s_level = roi_level_and_geometry(lv, num_levels, rois, r, out_size,
+                                     min_level, s_geom);
   }
   __syncthreads();
 
@@ -142,20 +62,7 @@ __global__ void roi_align_fwd_kernel(LevelTable lv, int num_levels,
   const int H = lv.h[li];
   const int W = lv.w[li];
   const int per_bin = sampling * sampling;
-  const int n_samples = out_size * per_bin;
-  const float fs = (float)sampling;
-  for (int k = threadIdx.x; k < n_samples; k += blockDim.x) {
-    const int px = k / per_bin;
-    const int iy = (k % per_bin) / sampling;
-    const int ix = k % sampling;
-    // y1 - 0.5 + (bin + (j + 0.5)/s) * bin_h, rounded step by step as
-    // the plain version rounds it
-    const float fy = __fadd_rn((float)py, __fdiv_rn((float)iy + 0.5f, fs));
-    const float fx = __fadd_rn((float)px, __fdiv_rn((float)ix + 0.5f, fs));
-    const float y = __fadd_rn(s_geom[0], __fmul_rn(fy, s_geom[2]));
-    const float x = __fadd_rn(s_geom[1], __fmul_rn(fx, s_geom[3]));
-    s_taps[k] = make_taps(y, x, H, W);
-  }
+  row_taps(s_taps, s_geom, py, out_size, sampling, H, W);
   __syncthreads();
 
   const float count = (float)per_bin;
@@ -195,17 +102,7 @@ cudaError_t eksml_roi_align_fwd(const void* feats, const void* hw,
   if (num_levels < 1 || num_levels > EKSML_MAX_LEVELS || dtype < 0 ||
       dtype > 1 || sampling < 1 || out_size < 1 || channels < 1)
     return cudaErrorInvalidValue;
-  LevelTable lv;
-  const void* const* fp = static_cast<const void* const*>(feats);
-  const int* hwp = static_cast<const int*>(hw);
-  const float* sp = static_cast<const float*>(scales);
-  for (int i = 0; i < EKSML_MAX_LEVELS; ++i) {
-    const int j = i < num_levels ? i : num_levels - 1;
-    lv.ptr[i] = fp[j];
-    lv.h[i] = hwp[2 * j];
-    lv.w[i] = hwp[2 * j + 1];
-    lv.scale[i] = sp[j];
-  }
+  const LevelTable lv = make_level_table(feats, hw, scales, num_levels);
   const long long blocks = (long long)batch * n_rois;
   if (blocks == 0) return cudaSuccess;
   const size_t smem = sizeof(Taps) * (size_t)out_size * sampling * sampling;

@@ -1,11 +1,91 @@
-"""Mask postprocess for serving (numpy copy of ``paste_mask`` and
-``rle_encode`` from ``eksml_tpu/data/masks.py``)."""
+"""Mask utilities (numpy copy of ``eksml_tpu/data/masks.py``): polygon
+rasterization and RLE decoding for the training loader's GT crops,
+``paste_mask`` and ``rle_encode`` for serving."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+
+def polygon_fill(poly_xy: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Rasterize one polygon (``[N, 2]`` float xy) with the even-odd
+    rule at pixel centers (x + 0.5, y + 0.5)."""
+    ys = np.arange(height, dtype=np.float64) + 0.5
+    xs = np.arange(width, dtype=np.float64) + 0.5
+    px = poly_xy[:, 0]
+    py = poly_xy[:, 1]
+    qx = np.roll(px, -1)
+    qy = np.roll(py, -1)
+    y = ys[:, None]                                  # [H, 1]
+    cond = ((py[None, :] <= y) & (qy[None, :] > y)) | \
+           ((qy[None, :] <= y) & (py[None, :] > y))  # [H, V]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (y - py[None, :]) / (qy[None, :] - py[None, :])
+    xcross = px[None, :] + t * (qx[None, :] - px[None, :])  # [H, V]
+    xcross = np.where(cond, xcross, np.inf)
+    crossings = (xcross[:, None, :] > xs[None, :, None]).sum(axis=2)
+    return (crossings % 2 == 1).astype(np.uint8)
+
+
+def polygons_to_bbox_mask(polygons: Sequence[Sequence[float]],
+                          bbox_xyxy: Sequence[float],
+                          out_size: int) -> np.ndarray:
+    """COCO polygon segmentation → binary ``out_size²`` mask covering
+    ``bbox_xyxy`` (the bbox-cropped GT-mask format of the batches)."""
+    x1, y1, x2, y2 = bbox_xyxy
+    w = max(x2 - x1, 1e-4)
+    h = max(y2 - y1, 1e-4)
+    out = np.zeros((out_size, out_size), np.uint8)
+    for poly in polygons:
+        p = np.asarray(poly, np.float64).reshape(-1, 2)
+        p[:, 0] = (p[:, 0] - x1) / w * out_size
+        p[:, 1] = (p[:, 1] - y1) / h * out_size
+        out |= polygon_fill(p, out_size, out_size)
+    return out
+
+
+def rle_decode(rle: Dict, height: int = None, width: int = None) -> np.ndarray:
+    """COCO RLE ``{'size': [h, w], 'counts': ...}`` (uncompressed list or
+    compressed string) → binary ``[h, w]`` mask, column-major as
+    pycocotools."""
+    h, w = rle.get("size", (height, width))
+    counts = rle["counts"]
+    if isinstance(counts, (bytes, str)):
+        counts = _uncompress_counts(
+            counts.encode() if isinstance(counts, str) else counts)
+    flat = np.zeros(h * w, np.uint8)
+    pos = 0
+    val = 0
+    for c in counts:
+        if val:
+            flat[pos:pos + c] = 1
+        pos += c
+        val ^= 1
+    return flat.reshape(w, h).T
+
+
+def _uncompress_counts(s: bytes) -> List[int]:
+    """pycocotools' modified-LEB128 string → run-length list."""
+    counts: List[int] = []
+    i = 0
+    while i < len(s):
+        x = 0
+        k = 0
+        more = True
+        while more:
+            c = s[i] - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            i += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    return counts
 
 
 def rle_encode(mask: np.ndarray) -> Dict:

@@ -100,10 +100,19 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """NHWC images → C2..C5 NHWC (strides 4, 8, 16, 32).
-    ``num_blocks=(3, 4, 6, 3)`` is R50, ``(3, 4, 23, 3)`` R101."""
+    ``num_blocks=(3, 4, 6, 3)`` is R50, ``(3, 4, 23, 3)`` R101.
 
-    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3)):
+    ``freeze_at`` (BACKBONE.FREEZE_AT): the reference stops the gradient
+    at the output of every stage with ``stage + 2 <= freeze_at``
+    (``resnet.py:121-125``), so the stem and those stages get zero
+    gradient.  Here their parameters do not require grad and the last
+    frozen stage's output is detached; under SGD, with weight decay on
+    trainable kernels only, that is the same update."""
+
+    def __init__(self, num_blocks: Sequence[int] = (3, 4, 6, 3),
+                 freeze_at: int = 2):
         super().__init__()
+        self.freeze_at = freeze_at
         self.conv0 = SameConv2d(3, 64, 7, 2, bias=False)
         self.FrozenBN_0 = FrozenBN(64)
         in_ch = 64
@@ -118,14 +127,28 @@ class ResNetBackbone(nn.Module):
                 in_ch = ch * 4
                 names.append(name)
             self.stage_names.append(names)
+        if self.frozen_stages:
+            frozen = [self.conv0] + [
+                getattr(self, name)
+                for names in self.stage_names[:self.frozen_stages]
+                for name in names]
+            for module in frozen:
+                module.requires_grad_(False)
+
+    @property
+    def frozen_stages(self) -> int:
+        """Stages whose output the gradient stops at (stem included)."""
+        return max(0, min(self.freeze_at - 1, len(self.stage_names)))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.FrozenBN_0(self.conv0(to_nchw(x))))
         # 3x3/2 max-pool, padding 1 on every side with -inf
         x = F.max_pool2d(x, 3, 2, padding=1)
         feats = []
-        for names in self.stage_names:
+        for stage, names in enumerate(self.stage_names):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage < self.frozen_stages:
+                x = x.detach()
             feats.append(to_nhwc(x))
         return tuple(feats)

@@ -1,6 +1,7 @@
-"""Region Proposal Network head and proposal generation
-(``eksml_tpu/models/rpn.py``: ``RPNHead``, ``generate_proposals``).
-Anchor matching, sampling and the RPN losses belong to training."""
+"""Region Proposal Network (``eksml_tpu/models/rpn.py``): the head,
+proposal generation, and for training anchor matching, anchor sampling
+and the RPN losses.  The training functions take a leading batch dim
+where the reference vmaps over images."""
 
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from eksml_tpu_torch.models.resnet import SameConv2d, to_nchw
-from eksml_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from eksml_tpu_torch.ops.boxes import (clip_boxes, decode_boxes,
+                                      encode_boxes, pairwise_iou)
 from eksml_tpu_torch.ops.nms import nms_mask, top_k
+from eksml_tpu_torch.ops.sampling import sample_mask_by_priority
 
 
 class RPNHead(nn.Module):
@@ -83,3 +86,102 @@ def generate_proposals(per_level_logits: Sequence[torch.Tensor],
     top_boxes = torch.gather(boxes, 1,
                              top_idx[..., None].expand(*top_idx.shape, 4))
     return top_boxes, top_scores
+
+
+def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_valid: torch.Tensor, pos_thresh: float,
+                  neg_thresh: float, gt_crowd: torch.Tensor = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Label ``anchors [A, 4]`` against padded GT ``gt_boxes [B, G, 4]``.
+
+    Returns ``labels [B, A]`` (1 fg, 0 bg, -1 ignore, int32) and
+    ``matched_gt [B, A]`` (index of the best GT).  Padded GT rows
+    (``gt_valid`` 0) never create positives; crowd rows never become
+    positives and turn the background they overlap above ``neg_thresh``
+    into ignore.  The IoU matrix is ``[B, G, A]``: A is ~451k at 1344 px
+    while G ≤ ``MAX_GT_BOXES``.
+
+    Force-match: every valid non-crowd GT makes its best anchor positive.
+    The reference scatters ``where(force, 1, labels[best])`` over all G
+    rows (``rpn.py:92-96``), duplicates included, and a scatter with
+    duplicate indices has no defined order on CUDA.  Here only the rows
+    with ``force`` write, and they all write 1.  That equals the
+    reference whenever no two GT rows share a best anchor, and also when
+    only valid rows share one (both write 1 there); it can differ only
+    where a padded or crowd row's best anchor is a valid row's, and the
+    reference's own result then depends on its scatter order."""
+    b = gt_boxes.shape[0]
+    crowd = torch.zeros_like(gt_valid) if gt_crowd is None else gt_crowd
+    target_ok = (gt_valid > 0) & (crowd == 0)
+    iou_all = pairwise_iou(gt_boxes, anchors)             # [B, G, A]
+    iou = iou_all * target_ok[..., None].to(iou_all.dtype)
+    # argmax: the first of tied maxima, as the reference's argmax
+    best_iou, matched_gt = iou.amax(dim=1), iou.argmax(dim=1)
+    labels = torch.full(best_iou.shape, -1, dtype=torch.int32,
+                        device=anchors.device)
+    labels = torch.where(best_iou < neg_thresh, 0, labels)
+    labels = torch.where(best_iou >= pos_thresh, 1, labels)
+    crowd_rows = ((gt_valid > 0) & (crowd > 0))[..., None].to(iou_all.dtype)
+    crowd_iou = (iou_all * crowd_rows).amax(dim=1)
+    labels = torch.where((labels == 0) & (crowd_iou >= neg_thresh), -1,
+                         labels)
+    gt_best_iou, best_anchor = iou.amax(dim=2), iou.argmax(dim=2)  # [B, G]
+    force = target_ok & (gt_best_iou > 1e-3)
+    rows = torch.arange(b, device=anchors.device)[:, None].expand_as(force)
+    labels = labels.index_put((rows[force], best_anchor[force]),
+                              torch.ones((), dtype=torch.int32,
+                                         device=anchors.device))
+    has_gt = target_ok.any(dim=1, keepdim=True)
+    labels = torch.where(has_gt, labels,
+                         torch.where(labels == 1, 0, labels))
+    return labels, matched_gt
+
+
+def sample_anchors(labels: torch.Tensor, fg_priorities: torch.Tensor,
+                   bg_priorities: torch.Tensor, batch_per_im: int,
+                   fg_ratio: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-size fg/bg anchor subsample for the loss (``[B, A]`` masks
+    with at most ``batch_per_im`` bits per image); the priorities
+    ``[B, A]`` stand for the reference's two key splits at
+    ``rpn.py:111``."""
+    max_fg = int(batch_per_im * fg_ratio)
+    fg_mask = sample_mask_by_priority(labels == 1, fg_priorities, max_fg)
+    num_bg = batch_per_im - fg_mask.sum(dim=-1)
+    bg_mask = sample_mask_by_priority(labels == 0, bg_priorities,
+                                      batch_per_im, limit=num_bg)
+    return fg_mask, bg_mask
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy`` in its log-sigmoid form."""
+    labels = labels.to(logits.dtype)
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def smooth_l1(x: torch.Tensor, beta: float) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * x * x / beta, ax - 0.5 * beta)
+
+
+def rpn_losses(logits: torch.Tensor, deltas: torch.Tensor,
+               anchors: torch.Tensor, labels: torch.Tensor,
+               matched_gt: torch.Tensor, gt_boxes: torch.Tensor,
+               fg_mask: torch.Tensor, bg_mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-image RPN objectness BCE and box smooth-L1 (``[B]`` each),
+    both normalized by the number of sampled anchors.  logits ``[B, A]``,
+    deltas ``[B, A, 4]``, anchors ``[A, 4]``, labels / matched_gt /
+    masks ``[B, A]``, gt_boxes ``[B, G, 4]``."""
+    sel = fg_mask | bg_mask
+    cls_all = sigmoid_binary_cross_entropy(logits, labels == 1)
+    n_sel = sel.sum(dim=-1).clamp(min=1)
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    cls_loss = torch.where(sel, cls_all, zero).sum(dim=-1) / n_sel
+    gt_for_anchor = torch.gather(
+        gt_boxes, 1, matched_gt[..., None].expand(*matched_gt.shape, 4))
+    targets = encode_boxes(gt_for_anchor, anchors)
+    box_all = smooth_l1(deltas - targets, beta=1.0 / 9).sum(dim=-1)
+    box_loss = torch.where(fg_mask, box_all, zero).sum(dim=-1) / n_sel
+    return cls_loss, box_loss

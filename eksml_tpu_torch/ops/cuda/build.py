@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and builds
 alone into ``_build/lib<name>-<digest>.so`` (the digest covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused).  :func:`build` starts one ``nvcc`` per source, all at once,
-and waits for all of them.  Nothing is built at import time.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds and an unchanged one is reused).  :func:`build` starts
+one ``nvcc`` per source, all at once, and waits for all of them.
+Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -54,10 +55,13 @@ def nvcc_path() -> str:
 
 def _target(name: str):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Sequence[str]) -> Dict[str, BuildResult]:

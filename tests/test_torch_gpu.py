@@ -16,8 +16,10 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+import chip_smoke  # noqa: E402
 from eksml_tpu_torch.ops.roi_align import (  # noqa: E402
-    batched_multilevel_roi_align, dispatch_roi_align)
+    KERNELS, batched_multilevel_roi_align, dispatch_roi_align,
+    roi_align_backward_plain)
 
 STRIDES = (4, 8, 16, 32)
 
@@ -52,22 +54,119 @@ def test_kernel_matches_plain_version(cuda, dtype, out_size):
     another order); bfloat16: within one bfloat16 ulp of the plain
     version, which also accumulates in float32, plus that allowance."""
     feats, rois = _inputs(cuda, dtype)
-    before = dispatch_roi_align.launches
+    before = KERNELS.fwd.launches
     got = dispatch_roi_align(feats, rois, STRIDES, out_size)
-    assert dispatch_roi_align.launches == before + 1
+    assert KERNELS.fwd.launches == before + 1
     want = batched_multilevel_roi_align(feats, rois, STRIDES, out_size)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     fmax = max(float(f.float().abs().max()) for f in feats)
+    _assert_close(got, want, dtype, fmax)
+
+
+def test_kernel_takes_the_mask_target_call(cuda):
+    """Training's mask targets: one level at stride 1, one channel, each
+    ROI on its own 56² GT mask, out 28; within 1e-5 of the plain
+    version."""
+    masks, rois = chip_smoke.mask_target_inputs(np.random.RandomState(4),
+                                                48)
+    masks = torch.from_numpy(masks).to(cuda)
+    rois = torch.from_numpy(rois).to(cuda)
+    before = KERNELS.fwd.launches
+    got = dispatch_roi_align((masks,), rois, (1,), 28)
+    assert KERNELS.fwd.launches == before + 1
+    want = batched_multilevel_roi_align((masks,), rois, (1,), 28)
+    assert got.shape == (48, 1, 28, 28, 1) and float(want.max()) > 0.5
+    _assert_close(got, want, torch.float32, 1.0)
+
+
+def _assert_close(got, want, dtype, scale):
+    """float32: within 1e-5 of ``scale``; bfloat16: within one bfloat16
+    ulp of the plain value plus that allowance."""
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
-        assert float(diff.max()) <= 1e-5 * fmax
+        assert float(diff.max()) <= 1e-5 * scale
     else:
         w = want.float().abs()
         _, e = torch.frexp(w)
         ulp = torch.where(w == 0, torch.zeros_like(w),
                           torch.ldexp(torch.ones_like(w), e - 8))
-        assert bool((diff <= ulp + 1e-5 * fmax).all())
+        assert bool((diff <= ulp + 1e-5 * scale).all())
+
+
+def _zeros_like_levels(feats):
+    return [torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+            for f in feats]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_backward_kernel_matches_plain_version(cuda, dtype, out_size):
+    """Each level's gradient: float32 within 1e-5 of its largest
+    magnitude (atomics add in another order); bfloat16 within one ulp of
+    the plain value, which also sums in float32, plus that allowance."""
+    feats, rois = _inputs(cuda, dtype)
+    g = torch.randn((*rois.shape[:2], out_size, out_size, 64),
+                    device=cuda).to(dtype)
+    before = KERNELS.bwd.launches
+    got = KERNELS.bwd(_zeros_like_levels(feats), rois, g, STRIDES, out_size)
+    assert KERNELS.bwd.launches == before + 1
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, out_size)
+    torch.cuda.synchronize()
+    assert any(float(w.float().abs().max()) > 0 for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        _assert_close(a.to(dtype), w, dtype,
+                      max(float(w.float().abs().max()), 1e-30))
+
+
+def test_backward_kernel_deposits_n_times_one_rois_gradient(cuda):
+    """N identical ROIs deposit N times one ROI's gradient: the atomics
+    lose no update where every block hits the same pixels."""
+    feats, _ = _inputs(cuda, torch.float32, b=1, n=3, seed=3)
+    rois = torch.tensor([[[20.0, 30.0, 90.0, 120.0]]], device=cuda)
+    g = torch.randn((1, 1, 7, 7, 64), device=cuda)
+    one = KERNELS.bwd(_zeros_like_levels(feats), rois, g, STRIDES, 7)
+    many = KERNELS.bwd(_zeros_like_levels(feats), rois.repeat(1, 64, 1)
+                       .contiguous(), g.repeat(1, 64, 1, 1, 1).contiguous(),
+                       STRIDES, 7)
+    torch.cuda.synchronize()
+    for a, b in zip(many, one):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - 64 * b).abs().max()) <= 1e-5 * 64 * scale
+
+
+def test_copy_kernel_is_bitwise_clone(cuda):
+    for shape in [(2, 64, 64, 64), (3, 5, 7), (1,), (4, 33)]:
+        src = torch.randn(shape, device=cuda)
+        before = KERNELS.copy.launches
+        got = KERNELS.copy(src)
+        assert KERNELS.copy.launches == before + 1
+        assert got.data_ptr() != src.data_ptr()
+        assert torch.equal(got.view(torch.int32), src.view(torch.int32))
+    # an offset view: 16-byte vectors do not apply, the byte loop does
+    base = torch.randn(1001, device=cuda)
+    src = base[1:]
+    assert torch.equal(KERNELS.copy(src), src.clone())
+
+
+def test_roi_align_on_the_card_has_a_gradient(cuda):
+    """The repaired fault: the model's ROIAlign on CUDA tensors is
+    differentiable, through the backward kernel, and its feature
+    gradient is the plain version's."""
+    feats, rois = _inputs(cuda, torch.float32)
+    feats = [f.requires_grad_() for f in feats]
+    out = dispatch_roi_align(feats, rois, STRIDES, 7)
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    launches = [k.launches for k in KERNELS]
+    out.backward(g)
+    assert [k.launches for k in KERNELS] == [
+        launches[0], launches[1] + 1, launches[2] + len(STRIDES)]
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, 7)
+    for f, w in zip(feats, want):
+        _assert_close(f.grad, w, torch.float32,
+                      max(float(w.abs().max()), 1e-30))
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -127,3 +226,14 @@ def test_model_on_the_card_matches_the_cpu(cuda):
         assert np.isfinite(out["masks"]).all()
     finally:
         eng.close()
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """``chip_smoke.py``'s card-vs-CPU oracle on a 128² canvas with
+    another seed: one step of the tiny model from the same weights,
+    batch and priorities; losses and every gradient within 1e-4 of their
+    largest magnitude, every update within 1e-3 of its largest
+    magnitude (true float32 on the card), the mask targets equal away
+    from 0.5."""
+    out = chip_smoke.phase_train_reference(seed=5, img=128)
+    assert out["gradient_tensors"] > 40

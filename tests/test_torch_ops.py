@@ -21,14 +21,17 @@ jax.config.update("jax_platforms", "cpu")
 from eksml_tpu.ops import anchors as j_anchors  # noqa: E402
 from eksml_tpu.ops import boxes as j_boxes  # noqa: E402
 from eksml_tpu.ops import nms as j_nms  # noqa: E402
+from eksml_tpu.ops.pallas import roi_align_kernel as j_pallas  # noqa: E402
 from eksml_tpu.ops.pallas.roi_align_kernel import (  # noqa: E402
     TILE, pallas_batched_multilevel_roi_align, sublane_align)
 from eksml_tpu_torch.ops import anchors as t_anchors  # noqa: E402
 from eksml_tpu_torch.ops import boxes as t_boxes  # noqa: E402
 from eksml_tpu_torch.ops import nms as t_nms  # noqa: E402
 from eksml_tpu_torch.ops import roi_align as t_roi  # noqa: E402
+from eksml_tpu_torch.ops import sampling as t_sampling  # noqa: E402
 from eksml_tpu_torch.ops.cuda.roi_align_kernel import (  # noqa: E402
-    RoiAlignForward)
+    CopyToGlobal, RoiAlignBackward, RoiAlignForward, RoiAlignFunction,
+    RoiAlignKernels)
 
 # the module (eksml_tpu.ops re-exports a function of the same name)
 j_roi = importlib.import_module("eksml_tpu.ops.roi_align")
@@ -288,9 +291,134 @@ def test_cuda_wrapper_sends_cpu_tensors_to_the_plain_version():
         got, t_roi.batched_multilevel_roi_align(feats, rois, STRIDES, 7),
         rtol=0, atol=0)
     assert wrapper.launches == 0
-    before = t_roi.dispatch_roi_align.launches
+    before = [k.launches for k in t_roi.KERNELS]
     torch.testing.assert_close(
         t_roi.dispatch_roi_align(feats, rois, STRIDES, 14),
         t_roi.batched_multilevel_roi_align(feats, rois, STRIDES, 14),
         rtol=0, atol=0)
-    assert t_roi.dispatch_roi_align.launches == before
+    assert [k.launches for k in t_roi.KERNELS] == before
+
+
+# ---------------------------------------------------------------------
+# ROIAlign backward (plain version) and the autograd function
+# ---------------------------------------------------------------------
+
+
+def _vjp_case(seed, b=2, n=24, c=16, out_size=7):
+    rng = np.random.RandomState(seed)
+    feats = _feats(rng, b=b, c=c)
+    rois = _rois(rng, b, n)
+    g = rng.randn(b, n, out_size, out_size, c).astype(np.float32)
+    return feats, rois, g
+
+
+def _grad_close(got, want, rel):
+    """Each level within ``rel`` of its largest magnitude."""
+    for a, w in zip(got, want):
+        a = np.asarray(a, np.float64)
+        w = np.asarray(w, np.float64)
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a, w, rtol=0,
+                                   atol=rel * max(np.abs(w).max(), 1e-12))
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_roi_align_backward_plain_matches_jax_vjp(out_size):
+    """float32, 1e-5 of each level's largest gradient (sums in another
+    order)."""
+    feats, rois, g = _vjp_case(out_size, out_size=out_size)
+    _, vjp = jax.vjp(lambda fs: j_roi.batched_multilevel_roi_align(
+        fs, jnp.asarray(rois), STRIDES, out_size),
+        tuple(jnp.asarray(f) for f in feats))
+    want = vjp(jnp.asarray(g))[0]
+    got = t_roi.roi_align_backward_plain(
+        [_t(f) for f in feats], _t(rois), _t(g), STRIDES, out_size)
+    assert all(a.dtype == torch.float32 for a in got)
+    assert any(float(a.abs().max()) > 0 for a in got[1:])
+    _grad_close([a.numpy() for a in got], want, 1e-5)
+
+
+def test_roi_align_backward_plain_matches_pallas_backward_interpret():
+    """Against the TPU backward kernel itself (interpret mode), on ROIs
+    whose tile-fit level equals the FPN heuristic level."""
+    feats, rois, g = _vjp_case(21)
+    rois[1, 1] = [20.0, 24.0, 100.0, 90.0]     # replace the >P5 ROI
+    flat = jnp.asarray(rois.reshape(-1, 4))
+    same = np.asarray(
+        j_roi.assign_fpn_levels_tile_fit(flat, STRIDES, 4, TILE,
+                                         align=sublane_align(jnp.float32))
+        == j_roi.assign_fpn_levels(flat) - 2)
+    assert same.all()
+    want = j_pallas._pallas_backward(
+        tuple(jnp.asarray(f) for f in feats), jnp.asarray(rois),
+        jnp.asarray(g), STRIDES, 7, 2, 2, True)
+    got = t_roi.roi_align_backward_plain(
+        [_t(f) for f in feats], _t(rois), _t(g), STRIDES, 7)
+    _grad_close([a.numpy() for a in got], want, 1e-4)
+
+
+def test_roi_align_backward_plain_bf16_accumulates_in_f32():
+    feats, rois, g = _vjp_case(22)
+    f16 = [_t(f).bfloat16() for f in feats]
+    g16 = _t(g).bfloat16()
+    got = t_roi.roi_align_backward_plain(f16, _t(rois), g16, STRIDES, 7)
+    ref = t_roi.roi_align_backward_plain([f.float() for f in f16], _t(rois),
+                                         g16.float(), STRIDES, 7)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, r.bfloat16(), rtol=0, atol=0)
+
+
+def test_roi_align_function_on_cpu_matches_autograd_of_plain_version():
+    """``RoiAlignFunction`` with the wrappers on CPU tensors (each takes
+    its plain version): the forward and the feature gradients of the
+    plain version under autograd, no ROI gradient, no launch."""
+    feats, rois, g = _vjp_case(23)
+    kernels = RoiAlignKernels(t_roi.batched_multilevel_roi_align,
+                              t_roi.accumulate_roi_align_backward)
+    fa = [_t(f).requires_grad_() for f in feats]
+    fb = [_t(f).requires_grad_() for f in feats]
+    r = _t(rois).requires_grad_()
+    want = t_roi.batched_multilevel_roi_align(fa, _t(rois), STRIDES, 7)
+    got = RoiAlignFunction.apply(kernels, r, STRIDES, 7, 2, 2, *fb)
+    assert got.grad_fn is not None
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    want.backward(_t(g))
+    got.backward(_t(g))
+    _grad_close([b.grad.numpy() for b in fb],
+                [a.grad.numpy() if a.grad is not None
+                 else np.zeros(a.shape) for a in fa], 1e-5)
+    assert r.grad is None
+    assert [k.launches for k in kernels] == [0, 0, 0]
+
+
+def test_backward_and_copy_wrappers_send_cpu_tensors_to_plain_versions():
+    feats, rois, g = _vjp_case(24)
+    accs = [torch.ones(f.shape) for f in feats]
+    bwd = RoiAlignBackward(t_roi.accumulate_roi_align_backward)
+    out = bwd(accs, _t(rois), _t(g), STRIDES, 7)
+    plain = t_roi.roi_align_backward_plain(
+        [_t(f) for f in feats], _t(rois), _t(g), STRIDES, 7)
+    for o, a, p in zip(out, accs, plain):
+        assert o is a                       # accumulated in place
+        _grad_close([(o - 1.0).numpy()], [p.numpy()], 1e-5)
+    copy = CopyToGlobal()
+    src = _t(feats[0])
+    dst = copy(src)
+    assert dst.data_ptr() != src.data_ptr() and torch.equal(dst, src)
+    assert bwd.launches == copy.launches == 0
+
+
+def test_sampler_mask_keeps_every_pick_once():
+    """``sample_mask_by_priority`` over a batch: per row at most ``k``
+    candidates, the ones with the highest priorities."""
+    rng = np.random.RandomState(25)
+    cand = _t(rng.rand(3, 50) < 0.4)
+    pri = _t(rng.rand(3, 50).astype(np.float32))
+    mask = t_sampling.sample_mask_by_priority(cand, pri, 6,
+                                              limit=torch.tensor([6, 2, 0]))
+    assert mask.sum(1).tolist() == [6, 2, 0]
+    assert not (mask & ~cand).any()
+    top = torch.where(cand, pri, torch.full_like(pri, -1.0)).sort(
+        1, descending=True).values
+    assert (pri[0][mask[0]].min() >= top[0, 5])
