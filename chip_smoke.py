@@ -119,10 +119,14 @@ def phase_build(kernels):
 # ---------------------------------------------------------------------
 
 
-def make_rois(rng: np.random.RandomState, n: int) -> np.ndarray:
+def make_rois(rng: np.random.RandomState, n: int,
+              kinds=None) -> np.ndarray:
     """[n, 4] xyxy boxes on the canvas: mostly log-uniform sizes, plus
-    border-hugging, sub-pixel and larger-than-canvas boxes."""
-    kinds = rng.choice(4, size=n, p=[0.7, 0.1, 0.1, 0.1])
+    border-hugging, sub-pixel and larger-than-canvas boxes (``kinds``
+    0-3, drawn 70/10/10/10 % unless given)."""
+    if kinds is None:
+        kinds = rng.choice(4, size=n, p=[0.7, 0.1, 0.1, 0.1])
+    kinds = np.asarray(kinds)
     ctr = rng.rand(n, 2) * CANVAS
     size = np.exp(rng.uniform(np.log(4), np.log(CANVAS), n))
     ar = np.exp(rng.randn(n) * 0.5)
@@ -143,6 +147,21 @@ def make_rois(rng: np.random.RandomState, n: int) -> np.ndarray:
     return boxes.astype(np.float32)
 
 
+def make_clustered_rois(rng: np.random.RandomState, n: int) -> np.ndarray:
+    """[n, 4] ROIs of one image as the training sampler clusters them:
+    the first quarter are copies of 1-8 seeded GT boxes jittered by 10 %
+    of their side (the fg ROIs, which lead the sampled set, so the mask
+    call's fg prefix is all of them), the rest as :func:`make_rois`."""
+    rois = make_rois(rng, n)
+    k = rng.randint(1, 9)
+    gt = make_rois(rng, k, kinds=np.zeros(k, int))
+    m = n // 4
+    pick = gt[rng.randint(0, k, m)]
+    side = np.tile(pick[:, 2:] - pick[:, :2], 2)
+    rois[:m] = pick + rng.randn(m, 4) * 0.1 * side
+    return rois.astype(np.float32)
+
+
 def mask_target_inputs(rng: np.random.RandomState, n: int,
                        m0: int = GT_MASK_SIZE):
     """The mask-target call's inputs: ``n`` seeded binary GT masks
@@ -159,39 +178,81 @@ def mask_target_inputs(rng: np.random.RandomState, n: int,
             rois[:, None, :].astype(np.float32))
 
 
-def touched_pixels(rois: np.ndarray, out_size: int, sampling: int,
-                   sizes, strides) -> int:
-    """Map pixels (per channel) that the taps of a multilevel ROIAlign
-    call on ``rois`` [B, N, 4] touch at least once, counted on this
-    data; the levels are ``sizes`` [(H, W), ...] at ``strides``."""
+def fpn_levels(rois: np.ndarray, n_levels: int) -> np.ndarray:
+    """Level index (0 = P2) of each ROI of ``rois`` [..., 4] by the
+    kernels' FPN rule over ``n_levels`` levels."""
     from eksml_tpu_torch.ops.roi_align import assign_fpn_levels
 
     import torch
 
-    b, n = rois.shape[:2]
-    levels = (assign_fpn_levels(torch.from_numpy(rois.reshape(-1, 4)),
-                                max_level=1 + len(strides))
-              .numpy() - 2).reshape(b, n)
-    touched = [[np.zeros(hw, bool) for hw in sizes] for _ in range(b)]
-    frac = (np.arange(sampling, dtype=np.float32) + 0.5) / sampling
+    lv = assign_fpn_levels(torch.from_numpy(rois.reshape(-1, 4)),
+                           max_level=1 + n_levels).numpy() - 2
+    return lv.reshape(rois.shape[:-1])
+
+
+def roi_footprint(roi: np.ndarray, out_size: int, sampling: int, hw,
+                  stride: int):
+    """(rows, columns) of one ROI on its level's map of size ``hw`` =
+    (H, W) at ``stride``: the map rows and columns that a tap of nonzero
+    weight of its samples reaches inside the map, sorted, each at most
+    2·out·s long, in the kernels' float32 arithmetic.  The backward
+    changes exactly the pixels rows × columns; the footprint design
+    issues one reduction per such pixel and channel group."""
+    x1, y1, x2, y2 = np.asarray(roi, np.float32) * np.float32(1.0 / stride)
+    frac = ((np.arange(sampling, dtype=np.float32) + np.float32(0.5))
+            / np.float32(sampling))
     grid = (np.arange(out_size, dtype=np.float32)[:, None]
             + frac[None, :]).reshape(-1)
-    for bi in range(b):
-        for ri in range(n):
-            lv = levels[bi, ri]
-            sc = np.float32(1.0 / strides[lv])
-            x1, y1, x2, y2 = rois[bi, ri] * sc
-            bh = max(y2 - y1, np.float32(1e-4)) / np.float32(out_size)
-            bw = max(x2 - x1, np.float32(1e-4)) / np.float32(out_size)
-            ys = np.floor(y1 - np.float32(0.5) + grid * bh)
-            xs = np.floor(x1 - np.float32(0.5) + grid * bw)
-            rows = np.unique(np.concatenate([ys, ys + 1]))
-            cols = np.unique(np.concatenate([xs, xs + 1]))
-            rows = rows[(rows >= 0) & (rows <= sizes[lv][0] - 1)].astype(int)
-            cols = cols[(cols >= 0) & (cols <= sizes[lv][1] - 1)].astype(int)
-            if rows.size and cols.size:
-                touched[bi][lv][np.ix_(rows, cols)] = True
+
+    def axis(lo, hi, n):
+        size = max(hi - lo, np.float32(1e-4)) / np.float32(out_size)
+        v = (lo - np.float32(0.5)) + grid * size
+        v0 = np.floor(v)
+        w1 = v - v0
+        w0 = np.float32(1.0) - w1
+        pix = np.concatenate([v0[w0 != 0], (v0 + 1)[w1 != 0]])
+        return np.unique(pix[(pix >= 0) & (pix <= n - 1)]).astype(np.int64)
+
+    return axis(y1, y2, hw[0]), axis(x1, x2, hw[1])
+
+
+def footprints(rois: np.ndarray, out_size: int, sampling: int, sizes,
+               strides):
+    """(image, level index, rows, columns) of every ROI of ``rois``
+    [B, N, 4] on the levels ``sizes`` [(H, W), ...] at ``strides``."""
+    levels = fpn_levels(rois, len(strides))
+    return [(bi, lv, *roi_footprint(rois[bi, ri], out_size, sampling,
+                                    sizes[lv], strides[lv]))
+            for bi in range(rois.shape[0]) for ri in range(rois.shape[1])
+            for lv in [levels[bi, ri]]]
+
+
+def touched_pixels(rois: np.ndarray, out_size: int, sampling: int,
+                   sizes, strides) -> int:
+    """Map pixels (per channel) that the taps of a multilevel ROIAlign
+    call on ``rois`` [B, N, 4] touch with nonzero weight at least once,
+    counted on this data; the levels are ``sizes`` [(H, W), ...] at
+    ``strides``."""
+    touched = [[np.zeros(hw, bool) for hw in sizes]
+               for _ in range(rois.shape[0])]
+    for bi, lv, rows, cols in footprints(rois, out_size, sampling, sizes,
+                                         strides):
+        touched[bi][lv][np.ix_(rows, cols)] = True
     return sum(int(t.sum()) for per_b in touched for t in per_b)
+
+
+def backward_reductions(rois: np.ndarray, out_size: int, sampling: int,
+                        channels: int, sizes, strides):
+    """Global reductions of one backward call on ``rois`` [B, N, 4]:
+    (footprint design: the sum over ROIs of footprint rows × columns ×
+    C/4; one scalar atomic per tap per channel, as the per-tap layout
+    without vector reductions issues them: R·out²·s²·4·C)."""
+    groups = -(-channels // 4)
+    fp = sum(len(rows) * len(cols) * groups
+             for _, _, rows, cols in footprints(rois, out_size, sampling,
+                                                sizes, strides))
+    taps = rois.shape[0] * rois.shape[1] * out_size ** 2 * sampling ** 2 * 4
+    return fp, taps * channels
 
 
 def bytes_and_ops(rois: np.ndarray, out_size: int, sampling: int,
@@ -238,6 +299,15 @@ def time_ms(fn, iters: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_repeats(fn, iters: int, warmup: int, repeats: int = 5):
+    """(median, min, max) ms per call of ``fn`` over ``repeats`` CUDA-event
+    timings of ``iters`` back-to-back calls each, every timing after its
+    own ``warmup`` calls (so that launches are queued ahead of the start
+    event, as in a single ``time_ms``)."""
+    runs = sorted(time_ms(fn, iters, warmup) for _ in range(repeats))
+    return runs[len(runs) // 2], runs[0], runs[-1]
 
 
 def bf16_ulp(x):
@@ -356,8 +426,10 @@ def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
     err = _check(kernel.name, f"{path} {call} o={out_size} B*N={b}*{n} "
                  f"C={feats[0].shape[-1]} levels={len(feats)}", dtype, diff,
                  want.float(), scale)
-    ms = time_ms(lambda: kernel(feats, rois, strides, out_size), iters=20,
-                 warmup=3)
+    ms, lo, hi = time_repeats(lambda: kernel(feats, rois, strides,
+                                             out_size), iters=20, warmup=3)
+    log(f"[kernel]   median of 5 timings of 20 launches {ms:.4f} ms "
+        f"(min {lo:.4f}, max {hi:.4f})")
     plain_ms = time_ms(lambda: batched_multilevel_roi_align(
         feats, rois, strides, out_size), iters=3, warmup=1)
     nbytes, ops = bytes_and_ops(
@@ -385,69 +457,138 @@ def _step_record(records):
             **total}
 
 
+def device_ms(fn, match: str, iters: int = 10):
+    """Device-only time per call of ``fn`` from torch.profiler: the
+    self device time of the kernels whose name holds ``match``, summed
+    over ``iters`` calls, over ``iters``; None where the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def time_in_turns(fns, iters: int, warmup: int):
+    """{name: ms} for each of ``fns`` {name: callable}, timed in turns
+    (a b c, then c b a) with CUDA events, the two turns averaged."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            times[k].append(time_ms(fns[k], iters=iters, warmup=warmup))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
 def kernel_backward(kernels, feats32, rng, gen):
     """The backward kernel against ``roi_align_backward_plain`` at
-    training's two calls, with the spread between two launches."""
+    training's two calls, on random ROIs and on ROIs clustered as the
+    sampler's fg ROIs are, in float32 and bfloat16: the error per level,
+    the spread between two launches, the global reductions per call, the
+    time of back-to-back launches and the device-only time."""
     import torch
-
-    from eksml_tpu_torch.ops.roi_align import roi_align_backward_plain
 
     dev = feats32[0].device
     kernel = kernels.bwd
-    rois_all = np.stack([make_rois(rng, max(n for _, _, n in TRAIN_CALLS))
-                         for _ in range(BATCH)])
+    n_max = max(n for _, _, n in TRAIN_CALLS)
+    roi_sets = {
+        "random": np.stack([make_rois(rng, n_max) for _ in range(BATCH)]),
+        "clustered": np.stack([make_clustered_rois(rng, n_max)
+                               for _ in range(BATCH)])}
+    sizes = [tuple(f.shape[1:3]) for f in feats32]
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         feats = tuple(f.to(dtype) for f in feats32)
         for call, out_size, n in TRAIN_CALLS:
-            rois_np = np.ascontiguousarray(rois_all[:, :n])
-            rois = torch.from_numpy(rois_np).to(dev)
             g = torch.randn((BATCH, n, out_size, out_size, CHANNELS),
                             generator=gen, device=dev).to(dtype)
-
-            def fresh():
-                return [torch.zeros(f.shape, dtype=torch.float32,
-                                    device=dev) for f in feats]
-
-            got = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
-            again = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
-            want = roi_align_backward_plain(feats, rois, g, LEVEL_STRIDES,
-                                            out_size)
-            torch.cuda.synchronize()
-            spread = max(float((a - b).abs().max())
-                         for a, b in zip(got, again))
-            errs = []
-            for lv, (a, w) in enumerate(zip(got, want)):
-                w = w.float()
-                scale = max(float(w.abs().max()), 1e-30)
-                errs.append(_check(kernel.name, f"{call} o={out_size} "
-                                   f"B*N={BATCH}*{n} P{lv + 2}", dtype,
-                                   (a.to(dtype).float() - w).abs(), w, scale))
-            del got, again, want
-            accs = fresh()
-            ms = time_ms(lambda: kernel(accs, rois, g, LEVEL_STRIDES,
-                                        out_size), iters=10, warmup=2)
-            plain_ms = time_ms(lambda: roi_align_backward_plain(
-                feats, rois, g, LEVEL_STRIDES, out_size), iters=2, warmup=1)
-            del accs
-            nbytes, ops = bytes_and_ops(rois_np, out_size, 2,
-                                        g.element_size(), backward=True)
-            rec = _record("train", call, dtype, out_size, BATCH * n,
-                          max(errs), ms, plain_ms, None, nbytes, ops)
-            rec["run_to_run_max_abs_diff"] = spread
-            log(f"[kernel]   two launches on the same inputs differ by at "
-                f"most {spread:.3g} (float32 atomics, order varies)")
-            records.append(rec)
+            for set_name, rois_all in roi_sets.items():
+                rois_np = np.ascontiguousarray(rois_all[:, :n])
+                rois = torch.from_numpy(rois_np).to(dev)
+                records.append(_backward_call(
+                    kernel, feats, rois_np, rois, g, call, set_name,
+                    out_size, sizes))
+        del feats
     records.append(_step_record([r for r in records
-                                 if r["dtype"] == "float32"]))
+                                 if r["dtype"] == "float32"
+                                 and r["rois_set"] == "random"]))
     return records
+
+
+def _backward_call(kernel, feats, rois_np, rois, g, call, set_name,
+                   out_size, sizes):
+    import torch
+
+    from eksml_tpu_torch.ops.roi_align import roi_align_backward_plain
+
+    dev = rois.device
+    dtype = g.dtype
+    b, n = rois_np.shape[:2]
+
+    def fresh():
+        return [torch.zeros(f.shape, dtype=torch.float32, device=dev)
+                for f in feats]
+
+    got = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
+    again = kernel(fresh(), rois, g, LEVEL_STRIDES, out_size)
+    want = roi_align_backward_plain(feats, rois, g, LEVEL_STRIDES, out_size)
+    torch.cuda.synchronize()
+    spread = max(float((a - w).abs().max()) for a, w in zip(got, again))
+    errs = []
+    for lv, (a, w) in enumerate(zip(got, want)):
+        w = w.float()
+        scale = max(float(w.abs().max()), 1e-30)
+        errs.append(_check(kernel.name, f"{call} {set_name} o={out_size} "
+                           f"B*N={b}*{n} P{lv + 2}", dtype,
+                           (a.to(dtype).float() - w).abs(), w, scale))
+    del got, again, want
+    fp, taps = backward_reductions(rois_np, out_size, 2, CHANNELS, sizes,
+                                   LEVEL_STRIDES)
+    log(f"[kernel]   global reductions per call: footprint {fp / 1e6:.2f} "
+        f"M (float4); per tap {taps / 1e6:.1f} M scalar atomics "
+        f"(R·out²·s²·4·C), {taps / 4e6:.1f} M as float4")
+    accs = fresh()
+    ms, lo, hi = time_repeats(lambda: kernel(accs, rois, g, LEVEL_STRIDES,
+                                             out_size), iters=10, warmup=2)
+    profiled = device_ms(lambda: kernel(accs, rois, g, LEVEL_STRIDES,
+                                        out_size), "roi_align_bwd_")
+    plain_ms = time_ms(lambda: roi_align_backward_plain(
+        feats, rois, g, LEVEL_STRIDES, out_size), iters=2, warmup=1)
+    del accs
+    log(f"[kernel]   median of 5 timings of 10 launches {ms:.4f} ms (min "
+        f"{lo:.4f}, max {hi:.4f}); device-only (torch.profiler) "
+        f"{_ms_text(profiled)}")
+    nbytes, ops = bytes_and_ops(rois_np, out_size, 2, g.element_size(),
+                                backward=True)
+    rec = _record("train", f"{call} {set_name}" if set_name != "random"
+                  else call, dtype, out_size, b * n, max(errs),
+                  ms, plain_ms, None, nbytes, ops)
+    rec.update(rois_set=set_name, run_to_run_max_abs_diff=spread,
+               device_ms=profiled,
+               reductions=fp, scalar_atomics_per_tap=taps)
+    log(f"[kernel]   two launches on the same inputs differ by at "
+        f"most {spread:.3g} (float32 atomics, order varies)")
+    return rec
 
 
 def kernel_copy(kernel, feats32, gen):
     """The copy kernel bitwise against ``clone()`` on the four level
-    shapes of the float32 accumulators, timed beside ``clone()`` and
-    ``dst.copy_(src)``; then one training step's seeding (two backward
-    calls, four levels each) timed as a whole."""
+    shapes of the float32 accumulators, timed in turns beside ``clone()``
+    and ``dst.copy_(src)``, with the device-only times of the kernel and
+    of ``copy_`` from torch.profiler; then one training step's seeding
+    (two backward calls, four levels each) timed as a whole."""
     import torch
 
     srcs = [torch.randn(f.shape, generator=gen, device=f.device)
@@ -456,38 +597,46 @@ def kernel_copy(kernel, feats32, gen):
     records = []
     for src, dst in zip(srcs, dsts):
         got = kernel(src)
-        want = src.clone()
         torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        same = torch.equal(got.view(torch.int32), src.view(torch.int32))
         shape = "x".join(str(d) for d in src.shape)
         log(f"[kernel] {kernel.name} [{shape}] float32: bitwise equal to "
             f"clone() {'ok' if same else 'FAIL'}")
         if not same:
             raise AssertionError(f"{kernel.name} differs from clone() at "
                                  f"[{shape}]")
-        del got, want
-        ms = time_ms(lambda: kernel(src), iters=20, warmup=3)
-        plain_ms = time_ms(lambda: src.clone(), iters=20, warmup=3)
-        library_ms = time_ms(lambda: dst.copy_(src), iters=20, warmup=3)
-        records.append(_record("train", f"[{shape}]", torch.float32, None,
-                               None, 0.0, ms, plain_ms, library_ms,
-                               2 * src.numel() * 4, 0))
+        del got
+        turns = time_in_turns({"kernel": lambda: kernel(src),
+                               "copy_": lambda: dst.copy_(src),
+                               "clone": lambda: src.clone()},
+                              iters=20, warmup=3)
+        dev_ms = {"kernel": device_ms(lambda: kernel(src), "copy_bulk_kernel"),
+                  "copy_": device_ms(lambda: dst.copy_(src), "")}
+        log("[kernel]   in turns: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in turns.items())
+            + "; device-only (torch.profiler): " + ", ".join(
+                f"{k} {_ms_text(v)}" for k, v in dev_ms.items()))
+        rec = _record("train", f"[{shape}]", torch.float32, None, None, 0.0,
+                      turns["kernel"], turns["clone"], turns["copy_"],
+                      2 * src.numel() * 4, 0)
+        rec["device_ms"] = dev_ms
+        records.append(rec)
     backward_calls = 2
-    step = [s for _ in range(backward_calls) for s in srcs]
     pairs = [(s, d) for _ in range(backward_calls)
              for s, d in zip(srcs, dsts)]
-    ms = time_ms(lambda: [kernel(s) for s in step], iters=10, warmup=2)
-    plain_ms = time_ms(lambda: [s.clone() for s in step], iters=10,
-                       warmup=2)
-    library_ms = time_ms(lambda: [d.copy_(s) for s, d in pairs], iters=10,
-                         warmup=2)
+    turns = time_in_turns(
+        {"kernel": lambda: [kernel(s) for s, _ in pairs],
+         "copy_": lambda: [d.copy_(s) for s, d in pairs],
+         "clone": lambda: [s.clone() for s, _ in pairs]},
+        iters=10, warmup=2)
     log(f"[kernel] {kernel.name} {STEP_CALL} ({backward_calls} backward "
-        f"calls x {len(srcs)} levels):")
-    rec = _record("train", STEP_CALL, torch.float32, None, None, 0.0, ms,
-                  plain_ms, library_ms,
-                  sum(2 * s.numel() * 4 for s in step), 0)
-    records.append(rec)
-    del srcs, dsts, step, pairs
+        f"calls x {len(srcs)} levels) in turns: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in turns.items()))
+    records.append(_record("train", STEP_CALL, torch.float32, None, None,
+                           0.0, turns["kernel"], turns["clone"],
+                           turns["copy_"],
+                           sum(2 * s.numel() * 4 for s, _ in pairs), 0))
+    del srcs, dsts, pairs
     return records
 
 
@@ -727,8 +876,7 @@ def profile_window(label: str, fn, top: int = 15):
     log(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms * 100:.1f}%), "
         f"{len(kernels)} kernel names")
-    ours = ("roi_align_fwd_kernel", "roi_align_bwd_kernel",
-            "copy_to_global_kernel")
+    ours = ("roi_align_fwd_kernel", "roi_align_bwd_", "copy_bulk_kernel")
     for i, (name, ms, count) in enumerate(kernels):
         if i < top or any(o in name for o in ours):
             log(f"[profile]   {ms:8.2f} ms "

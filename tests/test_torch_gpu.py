@@ -150,6 +150,114 @@ def test_copy_kernel_is_bitwise_clone(cuda):
     assert torch.equal(KERNELS.copy(src), src.clone())
 
 
+def _backward_kernels_run(fn):
+    """``fn()`` under torch.profiler: its result and the names of the
+    backward kernels it ran on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key for e in prof.key_averages()
+                 if "roi_align_bwd_" in e.key}
+
+
+def _assert_levels_close(got, want, dtype):
+    assert any(float(w.float().abs().max()) > 0 for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        _assert_close(a.to(dtype), w, dtype,
+                      max(float(w.float().abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("out_size,design", [(7, "footprint"),
+                                             (80, "rowwise")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 6])
+def test_backward_scalar_path_matches_plain_version(cuda, dtype, c,
+                                                    out_size, design):
+    """C % 4 != 0: one channel per reduction, in the footprint kernel
+    and, at an out size whose footprint does not fit in shared memory,
+    in the rowwise one."""
+    feats, rois = _inputs(cuda, dtype, c=c)
+    g = torch.randn((*rois.shape[:2], out_size, out_size, c),
+                    device=cuda).to(dtype)
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, out_size)
+    got, ran = _backward_kernels_run(lambda: KERNELS.bwd(
+        _zeros_like_levels(feats), rois, g, STRIDES, out_size))
+    assert len(ran) == 1 and f"roi_align_bwd_{design}_kernel" in ran.pop()
+    _assert_levels_close(got, want, dtype)
+
+
+def test_backward_takes_unaligned_accumulators(cuda):
+    """Accumulators that start 4 bytes past a 16-byte boundary take the
+    scalar path and still match."""
+    feats, rois = _inputs(cuda, torch.float32)
+    g = torch.randn((*rois.shape[:2], 14, 14, 64), device=cuda)
+    accs = [torch.zeros(f.numel() + 1, device=cuda)[1:].view(f.shape)
+            for f in feats]
+    assert all(a.data_ptr() % 16 == 4 and a.is_contiguous() for a in accs)
+    got = KERNELS.bwd(accs, rois, g, STRIDES, 14)
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, 14)
+    torch.cuda.synchronize()
+    _assert_levels_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("roi", [[-500.0, -400.0, 900.0, 1000.0],
+                                 [50.0, 60.0, 50.4, 60.7]],
+                         ids=["larger_than_the_level", "sub_pixel"])
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_backward_extreme_rois_match_plain_version(cuda, roi, out_size):
+    feats, _ = _inputs(cuda, torch.float32, b=1, n=3, seed=6)
+    rois = torch.tensor([[roi]], device=cuda)
+    g = torch.randn((1, 1, out_size, out_size, 64), device=cuda)
+    got = KERNELS.bwd(_zeros_like_levels(feats), rois, g, STRIDES, out_size)
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, out_size)
+    torch.cuda.synchronize()
+    _assert_levels_close(got, want, torch.float32)
+
+
+def test_backward_256_copies_of_one_roi_match_plain_version(cuda):
+    """Worst contention: every block reduces into the same pixels."""
+    feats, _ = _inputs(cuda, torch.float32, b=1, n=3, seed=7)
+    rois = torch.tensor([[[20.0, 30.0, 90.0, 120.0]]],
+                        device=cuda).repeat(1, 256, 1).contiguous()
+    g = torch.randn((1, 256, 7, 7, 64), device=cuda)
+    got = KERNELS.bwd(_zeros_like_levels(feats), rois, g, STRIDES, 7)
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, 7)
+    torch.cuda.synchronize()
+    _assert_levels_close(got, want, torch.float32)
+
+
+def test_backward_takes_the_rowwise_design_where_the_footprint_does_not_fit(
+        cuda):
+    """At out 64 the footprint's shared memory exceeds a block's: the
+    wrapper runs the rowwise kernel, which matches the plain version."""
+    feats, rois = _inputs(cuda, torch.float32, c=8, n=4)
+    g = torch.randn((*rois.shape[:2], 64, 64, 8), device=cuda)
+    want = roi_align_backward_plain(feats, rois, g, STRIDES, 64)
+    got, ran = _backward_kernels_run(lambda: KERNELS.bwd(
+        _zeros_like_levels(feats), rois, g, STRIDES, 64))
+    assert len(ran) == 1 and "roi_align_bwd_rowwise_kernel" in ran.pop()
+    _assert_levels_close(got, want, torch.float32)
+
+
+def test_copy_kernel_is_bitwise_clone_on_any_bytes(cuda):
+    """uint8 buffers of 1, 15, 17 and 2^20 + 3 bytes, and a float32 view
+    at storage offset 1 (its address 4 bytes past the fresh output's
+    alignment: copied byte by byte)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for n in (1, 15, 17, 2 ** 20 + 3):
+        src = torch.randint(0, 256, (n,), dtype=torch.uint8, device=cuda,
+                            generator=gen)
+        assert torch.equal(KERNELS.copy(src), src)
+    base = torch.randn(2 ** 20 + 1, device=cuda, generator=gen)
+    src = base[1:]
+    assert src.storage_offset() == 1
+    got = KERNELS.copy(src)
+    assert torch.equal(got.view(torch.int32), src.view(torch.int32))
+
+
 def test_roi_align_on_the_card_has_a_gradient(cuda):
     """The repaired fault: the model's ROIAlign on CUDA tensors is
     differentiable, through the backward kernel, and its feature

@@ -18,6 +18,7 @@ sys.path.insert(0, REPO)
 
 jax.config.update("jax_platforms", "cpu")
 
+import chip_smoke  # noqa: E402
 from eksml_tpu.ops import anchors as j_anchors  # noqa: E402
 from eksml_tpu.ops import boxes as j_boxes  # noqa: E402
 from eksml_tpu.ops import nms as j_nms  # noqa: E402
@@ -407,6 +408,36 @@ def test_backward_and_copy_wrappers_send_cpu_tensors_to_plain_versions():
     dst = copy(src)
     assert dst.data_ptr() != src.data_ptr() and torch.equal(dst, src)
     assert bwd.launches == copy.launches == 0
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_footprint_reckoner_covers_exactly_the_changed_pixels(out_size):
+    """``chip_smoke.roi_footprint`` (the count of the footprint design's
+    reductions) for single ROIs of each kind ``make_rois`` draws
+    (log-uniform, border-crossing, sub-pixel, larger than the canvas):
+    rows × columns are exactly the pixels that the plain backward changes
+    for a random nonzero ``g``, on the ROI's level and nowhere else, and
+    neither list is longer than 2·out·s."""
+    rng = np.random.RandomState(30 + out_size)
+    sizes = [(chip_smoke.CANVAS // s,) * 2 for s in STRIDES]
+    for kind in range(4):
+        for _ in range(3):
+            roi = chip_smoke.make_rois(rng, 1, kinds=[kind])
+            lv = int(chip_smoke.fpn_levels(roi, len(STRIDES))[0])
+            rows, cols = chip_smoke.roi_footprint(roi[0], out_size, 2,
+                                                  sizes[lv], STRIDES[lv])
+            assert 0 < len(rows) <= 2 * out_size * 2
+            assert 0 < len(cols) <= 2 * out_size * 2
+            accs = [torch.zeros((1, h, w, 1)) for h, w in sizes]
+            g = rng.randn(1, 1, out_size, out_size, 1).astype(np.float32)
+            t_roi.accumulate_roi_align_backward(accs, _t(roi[None]), _t(g),
+                                                STRIDES, out_size)
+            for i, acc in enumerate(accs):
+                want = np.zeros(sizes[i], bool)
+                if i == lv:
+                    want[np.ix_(rows, cols)] = True
+                np.testing.assert_array_equal(acc[0, :, :, 0].numpy() != 0,
+                                              want, err_msg=f"kind {kind}")
 
 
 def test_sampler_mask_keeps_every_pick_once():
