@@ -8,12 +8,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              summary.
 2. kernel  — hold each kernel against its plain PyTorch version on the
              card at the shapes the main paths give it and time both
-             with CUDA events: the ROIAlign forward at predict's two
-             calls and training's three (box, mask, and the mask
-             targets: one level, one channel), the backward at
-             training's two, in float32 and bfloat16, and the
-             accumulator copy on the four level shapes; then each
-             kernel's calls in one training step.
+             with CUDA events and torch.profiler: the ROIAlign forward
+             at predict's two calls and training's three (box, mask, and
+             the mask targets: one level, one channel), the forward's
+             training calls and the backward's also on clustered ROIs,
+             the backward at training's two, in float32 and bfloat16,
+             and the accumulator copy on the four level shapes; then
+             each kernel's calls in one training step.
 3. serve   — default config (R50-FPN, 81 classes, FPN 256, one 1344²
              bucket, batch rungs (1, 4), uint8 input, float32) with
              seeded random weights: start the port's ServingServer,
@@ -241,6 +242,20 @@ def touched_pixels(rois: np.ndarray, out_size: int, sampling: int,
     return sum(int(t.sum()) for per_b in touched for t in per_b)
 
 
+def forward_reads(rois: np.ndarray, out_size: int, sampling: int, sizes,
+                  strides):
+    """Map pixels (per channel) that one forward call on ``rois``
+    [B, N, 4] reads: (taps: one load per tap, R·out²·s²·4, as the
+    rowwise design reads them; footprint: the sum over ROIs of footprint
+    rows × columns, which the footprint design reads once per ROI;
+    touched: the distinct pixels, which the bound counts)."""
+    fp = sum(len(rows) * len(cols)
+             for _, _, rows, cols in footprints(rois, out_size, sampling,
+                                                sizes, strides))
+    taps = rois.shape[0] * rois.shape[1] * out_size ** 2 * sampling ** 2 * 4
+    return taps, fp, touched_pixels(rois, out_size, sampling, sizes, strides)
+
+
 def backward_reductions(rois: np.ndarray, out_size: int, sampling: int,
                         channels: int, sizes, strides):
     """Global reductions of one backward call on ``rois`` [B, N, 4]:
@@ -333,7 +348,8 @@ def phase_kernel(kernels, seed: int):
     rng = np.random.RandomState(seed)
     records = {
         kernels.fwd.name: kernel_forward(
-            kernels.fwd, feats32, rng, np.random.RandomState(seed + 1)),
+            kernels.fwd, feats32, rng, np.random.RandomState(seed + 1),
+            np.random.RandomState(seed + 2)),
         kernels.bwd.name: kernel_backward(kernels, feats32, rng, gen),
         kernels.copy.name: kernel_copy(kernels.copy, feats32, gen),
     }
@@ -364,33 +380,41 @@ def _check(name, call, dtype, diff, want, scale):
     return err
 
 
-def kernel_forward(kernel, feats32, rng, mask_rng):
+def kernel_forward(kernel, feats32, rng, mask_rng, cluster_rng):
     """The forward kernel against ``batched_multilevel_roi_align`` at
     every call the main paths make: predict's two and training's box and
-    mask calls on P2..P5 in float32 and bfloat16, and training's mask
-    targets (float32, one level, one channel) on seeded masks from
-    ``mask_rng``; then the sum of training's three calls in float32."""
+    mask calls on P2..P5 in float32 and bfloat16, training's two also on
+    ROIs clustered as the sampler's (from ``cluster_rng``), and
+    training's mask targets (float32, one level, one channel) on seeded
+    masks from ``mask_rng``; then the sum of training's three calls on
+    random ROIs in float32."""
     import torch
 
     dev = feats32[0].device
     n_max = max(n for _, _, n in CALLS + TRAIN_CALLS)
     rois_all = np.stack([make_rois(rng, n_max) for _ in range(BATCH)])
+    n_train = max(n for _, _, n in TRAIN_CALLS)
+    clustered = np.stack([make_clustered_rois(cluster_rng, n_train)
+                          for _ in range(BATCH)])
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         feats = tuple(f.to(dtype) for f in feats32)
         fmax = max(float(f.float().abs().max()) for f in feats)
-        for path, calls in (("predict", CALLS), ("train", TRAIN_CALLS)):
+        for path, calls, set_name, roi_set in (
+                ("predict", CALLS, "random", rois_all),
+                ("train", TRAIN_CALLS, "random", rois_all),
+                ("train", TRAIN_CALLS, "clustered", clustered)):
             for call, out_size, n in calls:
-                rois_np = np.ascontiguousarray(rois_all[:, :n])
+                rois_np = np.ascontiguousarray(roi_set[:, :n])
                 records.append(_forward_call(
                     kernel, path, call, feats, rois_np, LEVEL_STRIDES,
-                    out_size, fmax)[0])
+                    out_size, fmax, set_name)[0])
         del feats
     call, out_size, n = MASK_TARGETS
     masks, mrois = mask_target_inputs(mask_rng, BATCH * n)
     rec, got, want = _forward_call(
         kernel, "train", call, (torch.from_numpy(masks).to(dev),), mrois,
-        (1,), out_size, 1.0)
+        (1,), out_size, 1.0, "masks")
     # the targets are the samples thresholded at 0.5: a sum in another
     # order may flip a pixel only where the plain value lies at 0.5
     flips = (got >= 0.5) != (want >= 0.5)
@@ -403,15 +427,17 @@ def kernel_forward(kernel, feats32, rng, mask_rng):
                              "plain version differ away from 0.5")
     records.append(rec)
     records.append(_step_record([r for r in records if r["path"] == "train"
-                                 and r["dtype"] == "float32"]))
+                                 and r["dtype"] == "float32"
+                                 and r["rois_set"] != "clustered"]))
     return records
 
 
 def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
-                  scale):
-    """One forward call checked against the plain version (``scale``:
-    the largest feature magnitude) and timed beside it; returns the
-    record and both outputs."""
+                  scale, set_name):
+    """One forward call on the ROI set ``set_name`` checked against the
+    plain version (``scale``: the largest feature magnitude), timed beside
+    it with CUDA events and torch.profiler, with the pixels each design
+    reads; returns the record and both outputs."""
     import torch
 
     from eksml_tpu_torch.ops.roi_align import batched_multilevel_roi_align
@@ -423,32 +449,46 @@ def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
     want = batched_multilevel_roi_align(feats, rois, strides, out_size)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
-    err = _check(kernel.name, f"{path} {call} o={out_size} B*N={b}*{n} "
+    label = call if set_name != "clustered" else f"{call} {set_name}"
+    err = _check(kernel.name, f"{path} {label} o={out_size} B*N={b}*{n} "
                  f"C={feats[0].shape[-1]} levels={len(feats)}", dtype, diff,
                  want.float(), scale)
     ms, lo, hi = time_repeats(lambda: kernel(feats, rois, strides,
                                              out_size), iters=20, warmup=3)
+    profiled = device_ms(lambda: kernel(feats, rois, strides, out_size),
+                         "roi_align_fwd_")
     log(f"[kernel]   median of 5 timings of 20 launches {ms:.4f} ms "
-        f"(min {lo:.4f}, max {hi:.4f})")
+        f"(min {lo:.4f}, max {hi:.4f}); device-only (torch.profiler) "
+        f"{_ms_text(profiled)}")
     plain_ms = time_ms(lambda: batched_multilevel_roi_align(
         feats, rois, strides, out_size), iters=3, warmup=1)
+    sizes = [tuple(f.shape[1:3]) for f in feats]
+    taps, fp, touched = forward_reads(rois_np, out_size, 2, sizes, strides)
+    log(f"[kernel]   pixels read per channel: one per tap {taps / 1e6:.3f} "
+        f"M, footprints {fp / 1e6:.3f} M, touched once {touched / 1e6:.3f} "
+        "M")
     nbytes, ops = bytes_and_ops(
-        rois_np, out_size, 2, feats[0].element_size(),
-        sizes=[tuple(f.shape[1:3]) for f in feats], strides=strides,
-        channels=feats[0].shape[-1])
-    return (_record(path, call, dtype, out_size, b * n, err, ms, plain_ms,
-                    None, nbytes, ops), got, want)
+        rois_np, out_size, 2, feats[0].element_size(), sizes=sizes,
+        strides=strides, channels=feats[0].shape[-1])
+    rec = _record(path, label, dtype, out_size, b * n, err, ms, plain_ms,
+                  None, nbytes, ops)
+    rec.update(rois_set=set_name, device_ms=profiled, tap_pixels=taps,
+               footprint_pixels=fp, touched_pixels=touched)
+    return rec, got, want
 
 
 def _step_record(records):
     """One training step's calls of a kernel (``records``, float32),
-    summed: the times as measured call by call, the bound from the
-    summed bytes and operations."""
+    summed: the times as measured call by call (device-only where every
+    call has one), the bound from the summed bytes and operations."""
     total = {k: sum(r[k] for r in records)
              for k in ("ms", "plain_ms", "bytes", "ops")}
+    dev = [r["device_ms"] for r in records]
+    total["device_ms"] = None if None in dev else sum(dev)
     bound_ms, bound_by = bound_of(total["bytes"], total["ops"])
     log(f"[kernel]   {STEP_CALL} ({' + '.join(r['call'] for r in records)}"
-        f"): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"): kernel {total['ms']:.4f} ms (device-only "
+        f"{_ms_text(total['device_ms'])}), plain {total['plain_ms']:.3f} ms, "
         f"bound {bound_ms * 1e3:.1f} us ({total['bytes'] / 1e6:.1f} MB, "
         f"{bound_by}), {bound_ms / total['ms'] * 100:.1f}% of bound")
     return {"path": "train", "call": STEP_CALL, "dtype": "float32",
@@ -876,7 +916,7 @@ def profile_window(label: str, fn, top: int = 15):
     log(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms * 100:.1f}%), "
         f"{len(kernels)} kernel names")
-    ours = ("roi_align_fwd_kernel", "roi_align_bwd_", "copy_bulk_kernel")
+    ours = ("roi_align_fwd_", "roi_align_bwd_", "copy_bulk_kernel")
     for i, (name, ms, count) in enumerate(kernels):
         if i < top or any(o in name for o in ours):
             log(f"[profile]   {ms:8.2f} ms "

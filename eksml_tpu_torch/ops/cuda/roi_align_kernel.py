@@ -22,10 +22,10 @@ ROIAlign on either device (it is
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 from typing import Callable, Dict, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from eksml_tpu_torch.ops.cuda import build
@@ -77,12 +77,20 @@ class _CudaKernel:
 
 
 def _level_table(levels: Sequence[torch.Tensor], strides: Sequence[int]):
-    """Host-side level table (pointers, (H, W), 1/stride), alive until
-    the launch returns."""
-    ptrs = np.asarray([t.data_ptr() for t in levels], np.uint64)
-    hw = np.asarray([[t.shape[1], t.shape[2]] for t in levels], np.int32)
-    scales = np.asarray([1.0 / s for s in strides], np.float32)
-    return ptrs, hw, scales
+    """Host-side level table: one 8-byte-aligned buffer holding the
+    pointers (uint64), the (H, W) pairs (int32) and 1/stride (float32),
+    alive until the launch returns, and the address of each part.  One
+    ``struct.pack`` in place of three numpy arrays and their ctypes
+    views shortens the launch path, which outlasts the kernel on the
+    small mask-target call."""
+    n = len(levels)
+    raw = struct.pack(f"{n}Q{2 * n}i{n}f", *[t.data_ptr() for t in levels],
+                      *[d for t in levels for d in t.shape[1:3]],
+                      *[1.0 / s for s in strides])
+    buf = (ctypes.c_uint64 * (-(-len(raw) // 8))).from_buffer_copy(
+        raw.ljust(-(-len(raw) // 8) * 8, b"\0"))
+    base = ctypes.addressof(buf)
+    return buf, base, base + 8 * n, base + 16 * n
 
 
 def _check_rois(rois: torch.Tensor, dev: torch.device) -> None:
@@ -153,11 +161,10 @@ class RoiAlignForward(_CudaKernel):
                           dtype=feats[0].dtype, device=rois.device)
         if b * n == 0:
             return out
-        ptrs, hw, scales = _level_table(feats, strides)
+        table, ptrs, hw, scales = _level_table(feats, strides)
         with torch.cuda.device(rois.device):
             stream = torch.cuda.current_stream().cuda_stream
-            self._launch(ptrs.ctypes.data, hw.ctypes.data,
-                         scales.ctypes.data, len(feats), rois.data_ptr(),
+            self._launch(ptrs, hw, scales, len(feats), rois.data_ptr(),
                          out.data_ptr(), b, n, c, out_size, sampling_ratio,
                          min_level, _DTYPE_CODES[feats[0].dtype], stream)
         return out
@@ -209,11 +216,10 @@ class RoiAlignBackward(_CudaKernel):
                 f"{g.device}")
         if b * n == 0:
             return accs
-        ptrs, hw, scales = _level_table(accs, strides)
+        table, ptrs, hw, scales = _level_table(accs, strides)
         with torch.cuda.device(rois.device):
             stream = torch.cuda.current_stream().cuda_stream
-            self._launch(ptrs.ctypes.data, hw.ctypes.data,
-                         scales.ctypes.data, len(accs), rois.data_ptr(),
+            self._launch(ptrs, hw, scales, len(accs), rois.data_ptr(),
                          g.data_ptr(), b, n, c, out_size, sampling_ratio,
                          min_level, _DTYPE_CODES[g.dtype], stream)
         return accs

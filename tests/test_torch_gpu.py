@@ -80,6 +80,21 @@ def test_kernel_takes_the_mask_target_call(cuda):
     _assert_close(got, want, torch.float32, 1.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_takes_the_rowwise_design_where_the_footprint_does_not_fit(
+        cuda, dtype):
+    """At out 64 a footprint block would need out x ceil(out / 7) = 640
+    threads, more than its 224: the wrapper runs the rowwise kernel,
+    which matches the plain version."""
+    feats, rois = _inputs(cuda, dtype, c=8, n=4)
+    got, ran = _kernels_run(lambda: KERNELS.fwd(feats, rois, STRIDES, 64),
+                            "roi_align_fwd_")
+    assert len(ran) == 1 and "roi_align_fwd_rowwise_kernel" in ran.pop()
+    want = batched_multilevel_roi_align(feats, rois, STRIDES, 64)
+    _assert_close(got, want, dtype,
+                  max(float(f.float().abs().max()) for f in feats))
+
+
 def _assert_close(got, want, dtype, scale):
     """float32: within 1e-5 of ``scale``; bfloat16: within one bfloat16
     ulp of the plain value plus that allowance."""
@@ -150,16 +165,16 @@ def test_copy_kernel_is_bitwise_clone(cuda):
     assert torch.equal(KERNELS.copy(src), src.clone())
 
 
-def _backward_kernels_run(fn):
+def _kernels_run(fn, prefix="roi_align_bwd_"):
     """``fn()`` under torch.profiler: its result and the names of the
-    backward kernels it ran on the card."""
+    kernels whose name holds ``prefix`` that it ran on the card."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()    # no earlier work runs inside the window
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, {e.key for e in prof.key_averages()
-                 if "roi_align_bwd_" in e.key}
+    return out, {e.key for e in prof.key_averages() if prefix in e.key}
 
 
 def _assert_levels_close(got, want, dtype):
@@ -183,7 +198,7 @@ def test_backward_scalar_path_matches_plain_version(cuda, dtype, c,
     g = torch.randn((*rois.shape[:2], out_size, out_size, c),
                     device=cuda).to(dtype)
     want = roi_align_backward_plain(feats, rois, g, STRIDES, out_size)
-    got, ran = _backward_kernels_run(lambda: KERNELS.bwd(
+    got, ran = _kernels_run(lambda: KERNELS.bwd(
         _zeros_like_levels(feats), rois, g, STRIDES, out_size))
     assert len(ran) == 1 and f"roi_align_bwd_{design}_kernel" in ran.pop()
     _assert_levels_close(got, want, dtype)
@@ -236,7 +251,7 @@ def test_backward_takes_the_rowwise_design_where_the_footprint_does_not_fit(
     feats, rois = _inputs(cuda, torch.float32, c=8, n=4)
     g = torch.randn((*rois.shape[:2], 64, 64, 8), device=cuda)
     want = roi_align_backward_plain(feats, rois, g, STRIDES, 64)
-    got, ran = _backward_kernels_run(lambda: KERNELS.bwd(
+    got, ran = _kernels_run(lambda: KERNELS.bwd(
         _zeros_like_levels(feats), rois, g, STRIDES, 64))
     assert len(ran) == 1 and "roi_align_bwd_rowwise_kernel" in ran.pop()
     _assert_levels_close(got, want, torch.float32)
@@ -345,3 +360,77 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
     from 0.5."""
     out = chip_smoke.phase_train_reference(seed=5, img=128)
     assert out["gradient_tensors"] > 40
+
+
+# ---------------------------------------------------------------------
+# the forward's footprint design and its second design
+# ---------------------------------------------------------------------
+
+
+def _forward_matches_plain(feats, rois, out_size, sampling=2):
+    """The forward kernel on ``feats`` (one launch) against the plain
+    version, at the forward tolerances.  Which kernel ran is checked by
+    torch.profiler only where the design is the point (out 64): on the
+    card's machine the profiler has stopped seeing kernels partway
+    through a long test process."""
+    before = KERNELS.fwd.launches
+    got = KERNELS.fwd(feats, rois, STRIDES, out_size, sampling)
+    assert KERNELS.fwd.launches == before + 1
+    want = batched_multilevel_roi_align(feats, rois, STRIDES, out_size,
+                                        sampling)
+    assert got.dtype == feats[0].dtype and got.shape == want.shape
+    fmax = max(float(f.float().abs().max()) for f in feats)
+    _assert_close(got, want, feats[0].dtype, fmax)
+    return got
+
+
+@pytest.mark.parametrize("roi", [[-500.0, -400.0, 900.0, 1000.0],
+                                 [50.0, 60.0, 50.4, 60.7]],
+                         ids=["larger_than_the_level", "sub_pixel"])
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_forward_extreme_rois_match_plain_version(cuda, roi, out_size):
+    feats, _ = _inputs(cuda, torch.float32, b=1, n=3, seed=6)
+    _forward_matches_plain(feats, torch.tensor([[roi]], device=cuda),
+                           out_size)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 6])
+def test_forward_scalar_path_matches_plain_version(cuda, dtype, c):
+    """C not a multiple of the 16-byte vector: one channel per load."""
+    feats, rois = _inputs(cuda, dtype, c=c)
+    for out_size in (7, 14):
+        _forward_matches_plain(feats, rois, out_size)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_sampling_3_matches_plain_version(cuda, dtype):
+    """Three samples per bin and axis: a bin's band reaches up to 6
+    footprint columns, past the 4 weights a thread keeps in registers."""
+    feats, rois = _inputs(cuda, dtype)
+    for out_size in (7, 14):
+        _forward_matches_plain(feats, rois, out_size, sampling=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_takes_an_unaligned_level(cuda, dtype):
+    """P3 as a contiguous view at storage offset 1 (its address 4 or 2
+    bytes past a 16-byte boundary): the scalar path, still matching."""
+    feats, rois = _inputs(cuda, dtype)
+    p3 = torch.empty(feats[1].numel() + 1, dtype=dtype,
+                     device=cuda)[1:].view(feats[1].shape)
+    p3.copy_(feats[1])
+    assert p3.is_contiguous() and p3.data_ptr() % 16 != 0
+    feats = (feats[0], p3) + feats[2:]
+    for out_size in (7, 14):
+        _forward_matches_plain(feats, rois, out_size)
+
+
+def test_forward_256_copies_of_one_roi_match_plain_version(cuda):
+    """256 blocks on the same footprint: each output equals the others
+    bitwise (no atomics in the forward) and the plain version's."""
+    feats, _ = _inputs(cuda, torch.float32, b=1, n=3, seed=7)
+    rois = torch.tensor([[[20.0, 30.0, 90.0, 120.0]]],
+                        device=cuda).repeat(1, 256, 1).contiguous()
+    got = _forward_matches_plain(feats, rois, 7)
+    assert torch.equal(got, got[:, :1].expand_as(got))

@@ -268,6 +268,101 @@ def test_plain_roi_align_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+def _banded_weights(lo, hi, n, out_size, sampling):
+    """One axis of the footprint forward kernel's listing
+    (``csrc/roi_align_fwd.cu``, ``list_footprint``) in float32: each
+    tap's pixel (-1 outside the map or at weight 0), the one pass that
+    lists the distinct pixels (a pixel is new when it exceeds the last
+    one listed, else it is that one or the one before), and the banded
+    weights ``[out, len(footprint)]`` added in tap order."""
+    f32 = np.float32
+    size = max(hi - lo, f32(1e-4)) / f32(out_size)
+    taps = []                                   # (bin, pixel, weight)
+    for b in range(out_size):
+        for i in range(sampling):
+            f = f32(b) + (f32(i) + f32(0.5)) / f32(sampling)
+            v = (lo - f32(0.5)) + f * size
+            v0 = np.floor(v)
+            w1 = v - v0
+            for p, w in ((v0, f32(1.0) - w1), (v0 + f32(1.0), w1)):
+                ok = 0 <= p <= n - 1 and w != 0
+                taps.append((b, int(p) if ok else -1, w))
+    pix, idx = [], []
+    for _, p, _ in taps:
+        if p > (pix[-1] if pix else -1):
+            pix.append(p)
+            idx.append(len(pix) - 1)
+        elif p >= 0:
+            assert pix[-1] - p in (0, 1) and pix[len(pix) - 1 - (pix[-1] - p)] == p
+            idx.append(len(pix) - 1 - (pix[-1] - p))
+        else:
+            idx.append(-1)
+    wts = np.zeros((out_size, len(pix)), np.float32)
+    for (b, _, w), f in zip(taps, idx):
+        if f >= 0:
+            wts[b, f] += w
+    return np.asarray(pix, np.int64), wts
+
+
+def _separable_roi_align(feats, rois, strides, out_size, sampling=2):
+    """The footprint forward kernel's arithmetic in numpy: per ROI the
+    footprint rows and columns with banded Wy and Wx, the footprint read
+    once, contracted along x, then along y, and divided by s²."""
+    b, n = rois.shape[:2]
+    levels = chip_smoke.fpn_levels(rois, len(feats))
+    out = np.zeros((b, n, out_size, out_size, feats[0].shape[-1]),
+                   np.float32)
+    for bi in range(b):
+        for ri in range(n):
+            lv = levels[bi, ri]
+            f = feats[lv][bi]
+            x1, y1, x2, y2 = rois[bi, ri] * np.float32(1.0 / strides[lv])
+            rows, wy = _banded_weights(y1, y2, f.shape[0], out_size, sampling)
+            cols, wx = _banded_weights(x1, x2, f.shape[1], out_size, sampling)
+            # the reckoner of chip_smoke.py lists the same footprint
+            want = chip_smoke.roi_footprint(rois[bi, ri], out_size, sampling,
+                                            f.shape[:2], strides[lv])
+            np.testing.assert_array_equal(rows, want[0])
+            np.testing.assert_array_equal(cols, want[1])
+            fp = f[np.ix_(rows, cols)]                     # [rows, cols, C]
+            along_x = np.einsum("pj,ijc->ipc", wx, fp)     # [rows, out, C]
+            out[bi, ri] = (np.einsum("qi,ipc->qpc", wy, along_x)
+                           / np.float32(sampling * sampling))
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("out_size", [7, 14, 28])
+def test_footprint_forward_arithmetic_matches_plain_and_pallas(out_size, c):
+    """The footprint design's index math and contraction order, before any
+    chip time: within 1e-5 of the features' largest magnitude of the plain
+    version on every ROI (border, larger than the canvas, sub-pixel, and
+    one wholly outside the map, whose footprint is empty), and of the TPU
+    kernel (interpret mode) on the ROIs whose tile-fit level equals the
+    FPN heuristic level."""
+    rng = np.random.RandomState(40 + out_size + c)
+    feats = _feats(rng, c=c)
+    rois = _rois(rng, 2, 8)
+    rois[0, 1] = [200.0, 190.0, 230.0, 240.0]      # outside the 128² map
+    got = _separable_roi_align(feats, rois, STRIDES, out_size)
+    scale = max(float(np.abs(f).max()) for f in feats)
+    want = t_roi.batched_multilevel_roi_align(
+        [_t(f) for f in feats], _t(rois), STRIDES, out_size).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    assert not got[0, 1].any()
+    flat = jnp.asarray(rois.reshape(-1, 4))
+    same = np.asarray(
+        j_roi.assign_fpn_levels_tile_fit(flat, STRIDES, 4, TILE,
+                                         align=sublane_align(jnp.float32))
+        == j_roi.assign_fpn_levels(flat) - 2).reshape(rois.shape[:2])
+    assert same.sum() >= 12
+    pallas = np.asarray(pallas_batched_multilevel_roi_align(
+        tuple(jnp.asarray(f) for f in feats), jnp.asarray(rois), STRIDES,
+        out_size, 2, 2, True))
+    np.testing.assert_allclose(got[same], pallas[same], rtol=0,
+                               atol=1e-5 * scale)
+
+
 def test_plain_roi_align_bf16_accumulates_in_f32():
     """bf16 features: coordinates and sums in f32, one rounding at the
     end — equal to the f32 result on the same (bf16-exact) values,
