@@ -29,11 +29,22 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              device time by kernel and the device's busy share of the
              wall time.
 6. train   — default training config (R50-FPN at full width and depth,
-             1344² canvas, batch 4, float32) with seeded random weights:
-             6 steps of Trainer.fit over the port's DetectionLoader, the
-             losses, grad_norm and step times, peak memory, and the
-             three kernels' launches per step.
-7. train_reference — one training step on the card against the CPU at
+             1344² canvas, batch 4, float32) with seeded random weights,
+             writing into a temporary logdir: 6 steps of Trainer.fit over
+             the port's DetectionLoader, the losses, grad_norm and step
+             times, peak memory, and the three kernels' launches per step.
+7. lifecycle — at the same width, in-process on the train phase's
+             thread (cuDNN's autotune cache is per thread): a second
+             Trainer on the train phase's logdir restores its last step,
+             bitwise equal to the live state, and both take one step on
+             one batch; ``eksml_tpu_torch.train.main`` trains to step 3
+             (checkpoints 2 and 3), then relaunched to 5 resumes from 3;
+             the serve phase's engine hot-reloads step 5 through
+             ReloadManager and answers 4 requests at step 5 with zero
+             request-path compiles.  Prints the checkpoint bytes, the
+             save's blocking and background times, the restore time and
+             the reload's restore and swap times.
+8. train_reference — one training step on the card against the CPU at
              SMOKE widths on a 256² canvas: losses, every gradient and
              every update, and the mask targets.
 
@@ -49,8 +60,12 @@ import argparse
 import base64
 import copy
 import json
+import logging
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -59,7 +74,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
-          "train_reference")
+          "lifecycle", "train_reference")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -828,7 +843,9 @@ def phase_serve(cfg, kernels, seed: int):
                         "latency_ms": lat, "spans_ms": spans,
                         "warmup_peak_bytes": warm_peak,
                         "serve_peak_bytes": serve_peak,
-                        "launches": launches}
+                        "launches": launches, "images": images,
+                        "raw_scores": [r[1]["raw_top"]["scores"]
+                                       for r in results]}
     finally:
         server.drain(timeout=60)
 
@@ -952,11 +969,13 @@ def train_config():
     return finalize_configs(is_training=True)
 
 
-def phase_train(cfg, kernels, seed: int, extra_batches: int = 0):
-    """``TRAIN_STEPS`` steps of ``Trainer.fit`` at the default config:
-    step 1 (cuDNN autotune) apart from the median of the rest, peak
-    memory after step 1, the kernels' launches per step, and the checks
-    that the step trained what it must and froze the rest."""
+def phase_train(cfg, kernels, seed: int, logdir: str,
+                extra_batches: int = 0):
+    """``TRAIN_STEPS`` steps of ``Trainer.fit`` at the default config,
+    writing into ``logdir``: step 1 (cuDNN autotune) apart from the
+    median of the rest, peak memory after step 1, the kernels' launches
+    per step, and the checks that the step trained what it must and
+    froze the rest."""
     import torch
 
     from eksml_tpu_torch.convert import init_params
@@ -974,7 +993,7 @@ def phase_train(cfg, kernels, seed: int, extra_batches: int = 0):
     log(f"[train] {len(batches)} batches of {BATCH} built in "
         f"{time.perf_counter() - t0:.1f}s; canvas "
         f"{batches[0]['images'].shape[1:3]}, {batches[0]['images'].dtype}")
-    trainer = Trainer(cfg, logdir=".", device="cuda")
+    trainer = Trainer(cfg, logdir=logdir, device="cuda")
     model = trainer.init_state(init_params(
         cfg, torch.Generator().manual_seed(seed)))
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -997,10 +1016,10 @@ def phase_train(cfg, kernels, seed: int, extra_batches: int = 0):
             f"{k} {r[k]:.5g}" for k in (
                 "rpn_cls_loss", "rpn_box_loss", "frcnn_cls_loss",
                 "frcnn_box_loss", "mrcnn_loss", "total_loss", "grad_norm",
-                "learning_rate")) + f"; {r['step_time_s'] * 1e3:.1f} ms")
-    times = sorted(r["step_time_s"] for r in rows[1:])
+                "learning_rate")) + f"; {r['step_time_ms']:.1f} ms")
+    times = sorted(r["step_time_ms"] / 1e3 for r in rows[1:])
     median = times[len(times) // 2]
-    log(f"[train] step 1 (cuDNN autotune) {rows[0]['step_time_s']:.2f} s; "
+    log(f"[train] step 1 (cuDNN autotune) {rows[0]['step_time_ms'] / 1e3:.2f} s; "
         f"steps 2-{TRAIN_STEPS} median {median * 1e3:.1f} ms "
         f"(min {times[0] * 1e3:.1f}, max {times[-1] * 1e3:.1f}) = "
         f"{BATCH / median:.3f} images/s; peak torch.cuda."
@@ -1033,7 +1052,213 @@ def phase_train(cfg, kernels, seed: int, extra_batches: int = 0):
 
 
 # ---------------------------------------------------------------------
-# phase 7: one training step, the card against the CPU
+# phase 7: the trainer's lifecycle and serving what it wrote
+# ---------------------------------------------------------------------
+
+
+class _Lines(logging.Handler):
+    """Keeps the formatted messages of one logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _per_step(kernels, counts, steps):
+    want = {kernels.fwd.name: 3 * steps, kernels.bwd.name: 2 * steps,
+            kernels.copy.name: 2 * len(LEVEL_STRIDES) * steps}
+    assert counts == want, f"launches {counts}, expected {want}"
+
+
+def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
+    """Direct resume, the entry point's relaunch-resume, and hot-reload
+    of the entry point's last step into the serve phase's engine."""
+    import torch
+
+    from eksml_tpu_torch import telemetry
+    from eksml_tpu_torch.resilience.integrity import verify_step
+    from eksml_tpu_torch.serve import (MicroBatcher, ReloadManager,
+                                       ServingServer)
+    from eksml_tpu_torch.train import Trainer, main
+
+    def counts():
+        return {kern.name: kern.launches for kern in kernels}
+
+    out = {}
+    path_launches = []
+    # 1. direct resume: a second Trainer restores the last checkpoint
+    trainer.ckpt.wait()
+    k = trainer.step
+    if trainer.ckpt.latest_step() != k:
+        # the profiled step was not the run's last: commit the live state
+        assert trainer.ckpt.save(k, trainer.checkpoint_state())
+        trainer.ckpt.wait()
+    assert trainer.ckpt.latest_step() == k, (trainer.ckpt.all_steps(), k)
+    save = dict(trainer.ckpt.last_save)
+    t0 = time.perf_counter()
+    second = Trainer(cfg, trainer.logdir, device="cuda")
+    assert second.restore_or_init() == k
+    torch.cuda.synchronize()
+    out["restore_ms"] = second.ckpt.last_restore_ms
+    out["restore_or_init_ms"] = (time.perf_counter() - t0) * 1e3
+    live, restored = trainer.checkpoint_state(), second.checkpoint_state()
+    assert set(live["model"]) == set(restored["model"])
+    differ = [n for n in live["model"]
+              if not torch.equal(live["model"][n], restored["model"][n])]
+    ma, mb = live["optimizer"]["state"], restored["optimizer"]["state"]
+    assert set(ma) == set(mb) and len(ma) > 40, (len(ma), len(mb))
+    differ += [f"momentum {i}" for i in ma if not torch.equal(
+        ma[i]["momentum_buffer"], mb[i]["momentum_buffer"])]
+    if not torch.equal(live["generator"], restored["generator"]):
+        differ.append("generator")
+    log(f"[lifecycle] step {k} restored by a second Trainer: "
+        f"{len(live['model'])} model tensors, {len(ma)} momentum buffers "
+        f"and the generator state bitwise equal to the live state: "
+        f"{not differ}; restore {out['restore_ms']:.1f} ms (verify, "
+        f"torch.load, load), restore_or_init {out['restore_or_init_ms']:.1f}"
+        " ms (with the seeded init it overwrites)")
+    assert not differ, f"restored state differs: {differ[:5]}"
+    batch = next(batches)
+    for kern in kernels:
+        kern.launches = 0
+    row_a = trainer.fit(iter([batch]), k + 1, start_step=k)[-1]
+    trainer.ckpt.wait()          # step k + 1 is committed: second skips it
+    row_b = second.fit(iter([batch]), k + 1, start_step=k)[-1]
+    torch.cuda.synchronize()
+    path_launches.append(counts())
+    _per_step(kernels, path_launches[-1], 2)
+    rel = {key: abs(row_a[key] - row_b[key]) / max(abs(row_a[key]), 1e-30)
+           for key in row_a if key.endswith("_loss")}
+    log(f"[lifecycle] one more step each on one batch: total_loss "
+        f"{row_a['total_loss']:.9g} / {row_b['total_loss']:.9g}, largest "
+        f"relative difference over the losses {max(rel.values()):.3e} "
+        "(tolerance 1e-6)")
+    assert max(rel.values()) <= 1e-6, rel
+    trainer.ckpt.wait()
+    save_next = dict(trainer.ckpt.last_save)
+    out.update(ckpt_bytes=save_next["bytes"],
+               save_blocking_ms=[save["blocking_ms"],
+                                 save_next["blocking_ms"]],
+               save_write_ms=[save["write_ms"], save_next["write_ms"]])
+    file_bytes = os.path.getsize(os.path.join(
+        trainer.ckpt.directory, str(k + 1), "state.pt"))
+    log(f"[lifecycle] checkpoint of step {k + 1}: {save_next['bytes']} "
+        f"tensor bytes, state.pt {file_bytes} bytes; save blocking (host "
+        f"copy) {save['blocking_ms']:.1f} / {save_next['blocking_ms']:.1f} "
+        f"ms, background write + fsync + commit {save['write_ms']:.1f} / "
+        f"{save_next['write_ms']:.1f} ms (steps {k} / {k + 1})")
+    second.close()
+    trainer.close()
+    del second, live, restored, ma, mb
+    torch.cuda.empty_cache()
+
+    # 2. the entry point: train to 3, then relaunched to 5
+    run = os.path.join(workdir, "entry")
+    lines = _Lines()
+    logging.getLogger("eksml_tpu_torch.train").addHandler(lines)
+    argv = ["--logdir", run, "--synthetic", "--config",
+            "TRAIN.STEPS_PER_EPOCH=2", "TRAIN.CHECKPOINT_PERIOD=1",
+            f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.LOG_PERIOD=1"]
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        assert main(["--total-steps", "3"] + argv) == 0
+        root = os.path.join(run, "checkpoints")
+        first = sorted(int(n) for n in os.listdir(root) if n.isdigit())
+        assert first == [2, 3], first
+        t1 = time.perf_counter()
+        assert main(["--total-steps", "5"] + argv) == 0
+        t2 = time.perf_counter()
+    finally:
+        logging.getLogger("eksml_tpu_torch.train").removeHandler(lines)
+    torch.cuda.synchronize()
+    path_launches.append(counts())
+    _per_step(kernels, path_launches[-1], 5)
+    assert "resuming from checkpoint step 3" in lines.lines, lines.lines
+    steps = sorted(int(n) for n in os.listdir(root) if n.isdigit())
+    assert steps == [2, 3, 4, 5], steps
+    bad = [s for s in steps if not verify_step(root, s)[0]]
+    assert not bad, f"steps failing verify_step: {bad}"
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    logged = [r["step"] for r in rows if "total_loss" in r]
+    assert logged == [1, 2, 3, 4, 5], logged
+    assert all(np.isfinite(r["total_loss"]) for r in rows
+               if "total_loss" in r)
+    assert sum(r.get("event") == "run_start" for r in rows) == 2
+    out.update(entry_s=[t1 - t0, t2 - t1])
+    log(f"[lifecycle] python -m eksml_tpu_torch.train --synthetic, "
+        f"in-process: to step 3 in {t1 - t0:.1f} s (checkpoints {first}), "
+        f"relaunched to 5 in {t2 - t1:.1f} s, resumed from step 3, "
+        f"checkpoints {steps} all verified; metrics.jsonl rows for steps "
+        f"{logged}")
+
+    # 3. hot-reload of step 5 into the serve phase's engine
+    mgr = ReloadManager(engine, run)
+    outcome = mgr.reload_step(5)
+    assert outcome["ok"] and engine.params_step == 5, outcome
+    out.update({f"reload_{key}": v for key, v in mgr.last_timings.items()})
+    batcher = MicroBatcher(engine, engine.cfg)
+    server = ServingServer(batcher, port=0, addr="127.0.0.1").start()
+    server.reload_manager = mgr
+    server.mark_ready()
+    url = f"http://127.0.0.1:{server.port}"
+    d = engine.model.test_results_per_im
+    for kern in kernels:
+        kern.launches = 0
+    batches_metric = telemetry.default_registry().counter(
+        "eksml_serve_batches")
+    before = batches_metric.value
+    try:
+        answers = [post(url, img, raw_topk=d) for img in serve["images"][:4]]
+    finally:
+        server.drain(timeout=60)
+    dispatched = int(batches_metric.value - before)
+    launches = counts()
+    path_launches.append(launches)
+    changes = []
+    for i, (status, body) in enumerate(answers):
+        assert status == 200, (i, status)
+        assert body["params_step"] == 5, (i, body["params_step"])
+        boxes = np.asarray(body["raw_top"]["boxes"], np.float64)
+        assert boxes.shape == (d, 4) and np.isfinite(boxes).all(), i
+        # raw rows past the valid detections score -inf
+        new, old = (np.asarray(x, np.float64) for x in (
+            body["raw_top"]["scores"], serve["raw_scores"][i]))
+        assert not np.isnan(new).any(), i
+        both = np.isfinite(new) & np.isfinite(old)
+        changes.append((int(np.isfinite(old).sum()),
+                        int(np.isfinite(new).sum()),
+                        float(np.abs(new - old)[both].max())
+                        if both.any() else None,
+                        not np.array_equal(new, old)))
+    rpc = engine.request_path_compiles
+    log(f"[lifecycle] hot-reload of step 5: verify "
+        f"{mgr.last_timings['verify_ms']:.1f} ms, restore (mapped "
+        f"torch.load) {mgr.last_timings['restore_ms']:.1f} ms, swap (copy "
+        f"of the serving model on the card, load, reference swap) "
+        f"{mgr.last_timings['swap_ms']:.1f} ms; 4 requests answered at "
+        f"params_step 5 in {dispatched} batches, request_path_compiles "
+        f"{rpc}; per request (valid raw rows with the random weights, "
+        f"with step 5, largest change of a score valid in both, raw "
+        f"scores differ): {changes}; launches {launches}")
+    assert rpc == 0, f"request_path_compiles = {rpc}"
+    assert all(c[3] for c in changes), "raw scores did not change"
+    assert launches[kernels.fwd.name] == 2 * dispatched, launches
+    assert all(n == 0 for name, n in launches.items()
+               if name != kernels.fwd.name), launches
+    # the lifecycle path's launches: 2 + 5 training steps and the reload
+    out["launches"] = {kern.name: sum(c[kern.name] for c in path_launches)
+                       for kern in kernels}
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 8: one training step, the card against the CPU
 # ---------------------------------------------------------------------
 
 
@@ -1183,29 +1408,43 @@ def main(argv=None) -> int:
     # the kernels build first whatever phases run
     phase_build(KERNELS)
     records = phase_kernel(KERNELS, args.seed) if "kernel" in phases else {}
-    engine = serve = None
-    if {"serve", "reference", "profile"} & set(phases):
-        engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
-    if "reference" in phases:
-        phase_reference(engine.model, args.seed)
-    if "profile" in phases:
-        phase_profile(engine, args.seed)
-    if engine is not None:
-        engine.close()
-    train = None
-    if "train" in phases:
-        trainer, batches, train = phase_train(
-            train_config(), KERNELS, args.seed,
-            extra_batches=1 if "profile" in phases else 0)
+    # the lifecycle phase reloads into the serve phase's engine and
+    # resumes the train phase's run
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    engine = serve = train = life = None
+    try:
+        if {"serve", "reference", "profile", "lifecycle"} & set(phases):
+            engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
+        if "reference" in phases:
+            phase_reference(engine.model, args.seed)
         if "profile" in phases:
-            profile_window(
-                f"training step {TRAIN_STEPS + 1} at {CANVAS}x{CANVAS}, "
-                f"batch {BATCH}", lambda: trainer.fit(
-                    batches, TRAIN_STEPS + 1, start_step=TRAIN_STEPS))
-        del trainer, batches
-        torch.cuda.empty_cache()
-    if "train_reference" in phases:
-        phase_train_reference(args.seed)
+            phase_profile(engine, args.seed)
+        if {"train", "lifecycle"} & set(phases):
+            cfg = train_config()
+            trainer, batches, train = phase_train(
+                cfg, KERNELS, args.seed, os.path.join(workdir, "train"),
+                extra_batches=("profile" in phases)
+                + ("lifecycle" in phases))
+            if "profile" in phases:
+                # one batch to a total one step further: the profiled
+                # step is not the run's last, which checkpoints
+                profile_window(
+                    f"training step {TRAIN_STEPS + 1} at {CANVAS}x{CANVAS}, "
+                    f"batch {BATCH}", lambda: trainer.fit(
+                        iter([next(batches)]), TRAIN_STEPS + 2,
+                        start_step=TRAIN_STEPS))
+            if "lifecycle" in phases:
+                life = phase_lifecycle(cfg, KERNELS, trainer, batches,
+                                       engine, serve, workdir)
+            trainer.close()
+            del trainer, batches
+            torch.cuda.empty_cache()
+        if engine is not None:
+            engine.close()
+        if "train_reference" in phases:
+            phase_train_reference(args.seed)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s")
 
     if records:
@@ -1229,7 +1468,8 @@ def main(argv=None) -> int:
                 "launches": launches,
                 "launches_by_path": {
                     "serve": serve["launches"][k.name] if serve else None,
-                    "train": train["launches"][k.name] if train else None},
+                    "train": train["launches"][k.name] if train else None,
+                    "lifecycle": life["launches"][k.name] if life else None},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -1242,7 +1482,14 @@ def main(argv=None) -> int:
                 "shapes": recs,
             })
         print(json.dumps({"kernels": out}), flush=True)
-    print(gpu_name_and_limit(), flush=True)
+    card = gpu_name_and_limit()
+    if life is not None:
+        keys = ("ckpt_bytes", "save_blocking_ms", "save_write_ms",
+                "restore_ms", "reload_verify_ms", "reload_restore_ms",
+                "reload_swap_ms")
+        log(f"[lifecycle] on {card}: " + json.dumps(
+            {key: life[key] for key in keys}))
+    print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0
     print(json.dumps({"ok": True, "device": {

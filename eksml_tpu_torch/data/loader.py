@@ -7,17 +7,29 @@ loader yields byte-identical batches to the reference's.
 The loader reads records that hold their decoded image (``_image``),
 pads every image to the square ``PREPROC.MAX_SIZE`` canvas and builds
 batches in the calling thread: the reference's robust file reads,
-quarantine, decode pools, prefetch thread and aspect-ratio buckets
-(``PREPROC.BUCKETS``) are not ported yet.
+quarantine, decode pools and aspect-ratio buckets (``PREPROC.BUCKETS``)
+are not ported yet.  :class:`DevicePrefetcher` (the reference's
+``DevicePrefetcher``) builds and copies the next batches to the device
+on a worker thread while the device runs the current step.
 """
 
 from __future__ import annotations
 
+import logging
+import queue
+import threading
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from eksml_tpu_torch.data.masks import polygons_to_bbox_mask, rle_decode
+
+log = logging.getLogger(__name__)
+
+#: host-side batch entries the model does not take
+HOST_ONLY_KEYS = ("image_scale", "image_id")
 
 
 def quantize_uint8(image_f: np.ndarray) -> np.ndarray:
@@ -296,3 +308,165 @@ def make_synthetic_batch(cfg, batch_size: int = 1, image_size: int = 256,
         (cfg.PREPROC.MAX_SIZE, cfg.PREPROC.TRAIN_SHORT_EDGE_SIZE,
          cfg.PREPROC.BUCKETS) = saved
         cfg.freeze()
+
+
+def batch_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A host batch as CPU tensors sharing its memory, without the
+    host-only entries."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items() if k not in HOST_ONLY_KEYS}
+
+
+class DevicePrefetcher:
+    """Double-buffered host→device prefetch (``eksml_tpu/data/loader.py``
+    ``DevicePrefetcher``): ONE worker thread pulls batch N+1 from the
+    host iterator (the loader's image work runs there too) and copies it
+    to ``device`` while the device runs step N.
+
+    - Order is preserved exactly (one producer, FIFO queue), so the
+      losses are bit-identical with the prefetcher on or off.
+    - On CUDA the copy runs on the worker's own stream from pinned host
+      memory (what makes ``non_blocking`` asynchronous).  Each batch
+      carries an event recorded after its copies; :meth:`__next__` makes
+      the consumer's current stream wait on it and marks every tensor
+      used by that stream (``record_stream``), so the step never reads a
+      batch before its copy landed, and the allocator does not hand its
+      memory back to the copy stream while the step still reads it.
+    - ``limit``: the most batches to pull from the host iterator
+      (None: until it ends); :meth:`extend` raises it.  ``fit`` pulls
+      exactly the batches its steps take, so a caller's iterator loses
+      none between two ``fit`` calls.
+    - Errors of the iterator or the copy re-raise in :meth:`__next__`.
+    - ``wait_ms_last`` / ``wait_ms_ewma``: how long the consumer blocked
+      per batch (the ``data/prefetch_wait_ms`` metric).
+    """
+
+    _DONE = object()
+
+    def __init__(self, batches: Iterator[Dict[str, np.ndarray]], device,
+                 limit: Optional[int] = None):
+        self.device = torch.device(device)
+        # double buffering: one batch queued, one being copied
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self._budget = threading.Condition()
+        self._limit = limit
+        self._pulled = 0
+        self._error: list = []
+        self._done = False
+        self._stream = None      # the worker's copy stream, made on first use
+        self.wait_ms_last = 0.0
+        self.wait_ms_ewma: Optional[float] = None
+        self.batches_delivered = 0
+        self._thread = threading.Thread(
+            target=self._produce, args=(iter(batches),), daemon=True,
+            name="device-prefetch")
+        self._thread.start()
+
+    def extend(self, n: int) -> None:
+        """Allow ``n`` more batches (a rollback re-runs steps)."""
+        with self._budget:
+            if self._limit is not None:
+                self._limit += int(n)
+            self._budget.notify_all()
+
+    def _take_budget(self) -> bool:
+        with self._budget:
+            while (self._limit is not None and self._pulled >= self._limit
+                   and not self._stop.is_set()):
+                self._budget.wait(0.1)
+            if self._stop.is_set():
+                return False
+            self._pulled += 1
+            return True
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _copy(self, batch: Dict[str, np.ndarray]):
+        tensors = batch_tensors(batch)
+        if self.device.type != "cuda":
+            return tensors, None
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                out = {k: t.pin_memory().to(self.device, non_blocking=True)
+                       for k, t in tensors.items()}
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        return out, ready
+
+    def _produce(self, it) -> None:
+        try:
+            while self._take_budget():
+                try:
+                    host_batch = next(it)
+                except StopIteration:
+                    break
+                if not self._put(self._copy(host_batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised in next()
+            self._error.append(e)
+        finally:
+            self._put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        if self._done or (self._limit is not None
+                          and self.batches_delivered >= self._limit):
+            raise StopIteration
+        t0 = time.monotonic()
+        while True:
+            try:
+                item = self._q.get(timeout=120.0)
+                break
+            except queue.Empty:
+                if self._thread.is_alive():
+                    continue  # genuinely slow producer: keep waiting
+                raise RuntimeError(
+                    "device-prefetch thread is dead with nothing queued "
+                    "and no end-of-stream sentinel") from None
+        wait_ms = (time.monotonic() - t0) * 1000.0
+        if item is self._DONE:
+            self._done = True
+            if self._error:
+                raise self._error[0]
+            raise StopIteration
+        out, ready = item
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in out.values():
+                t.record_stream(stream)
+        self.wait_ms_last = wait_ms
+        self.wait_ms_ewma = (wait_ms if self.wait_ms_ewma is None
+                             else 0.8 * self.wait_ms_ewma + 0.2 * wait_ms)
+        self.batches_delivered += 1
+        return out
+
+    def close(self) -> None:
+        """Stop the worker and drop queued batches (safe to call twice).
+        Join BEFORE draining: the worker's stop-aware put exits within
+        its 0.1 s poll once the flag is set, so draining first would
+        race its final put."""
+        self._stop.set()
+        with self._budget:
+            self._budget.notify_all()
+        self._thread.join(timeout=5.0)
+        if self._thread.is_alive():
+            log.warning("device-prefetch thread still alive after close() "
+                        "(blocked inside a copy or the host iterator)")
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass

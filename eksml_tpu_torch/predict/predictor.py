@@ -1,18 +1,40 @@
 """Single-image detector on the serving engine
-(``eksml_tpu/predict/predictor.py``: ``DetectionResult``,
-``detections_from_raw``, ``OfflinePredictor``).
+(``eksml_tpu/predict/predictor.py``: ``restore_predict_params``,
+``DetectionResult``, ``detections_from_raw``, ``OfflinePredictor``).
 
 ``OfflinePredictor`` runs through the same bucket-padded
-``InferenceEngine`` the online server dispatches.  Restoring params from
-a checkpoint waits for the trainer slice.
+``InferenceEngine`` the online server dispatches, with params handed in
+or restored from a training checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
+
+log = logging.getLogger(__name__)
+
+
+def restore_predict_params(cfg, logdir: str, step: Optional[int] = None
+                           ) -> Dict:
+    """The model ``state_dict`` (on the CPU) of the trainer's checkpoint
+    ``step`` (default: the latest) under the training ``logdir``.  ONE
+    definition for the predictor, the serving engine and the reload
+    manager: all load exactly what the trainer saved.  ``cfg`` is the
+    reference's argument (its restore rebuilds a state skeleton); the
+    port's checkpoint carries its own structure."""
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(logdir)
+    step = ckpt.latest_step() if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {logdir}")
+    log.info("restoring checkpoint step %d from %s", step, logdir)
+    # mapped: the optimizer's half of the file is never read
+    return ckpt.restore(step, mmap=True)["model"]
 
 
 @dataclasses.dataclass
@@ -53,15 +75,16 @@ class OfflinePredictor:
     """Builds the engine once; call repeatedly with images."""
 
     def __init__(self, cfg, params=None, checkpoint_dir: Optional[str] = None,
-                 model=None, device="cuda"):
+                 checkpoint_step: Optional[int] = None, model=None,
+                 device="cuda"):
         from eksml_tpu_torch.serve.engine import InferenceEngine
 
         self.cfg = cfg
-        # the engine resolves the device and raises without CUDA, or
-        # for a checkpoint directory (the trainer slice)
+        # the engine resolves the device (raising without CUDA) and
+        # restores the checkpoint when no params are handed in
         self._engine = InferenceEngine(
-            cfg, params=params, checkpoint_dir=checkpoint_dir, model=model,
-            device=device)
+            cfg, params=params, checkpoint_dir=checkpoint_dir,
+            checkpoint_step=checkpoint_step, model=model, device=device)
 
     def raw(self, image: np.ndarray):
         """Raw outputs in RESIZED-image coordinates and the resize

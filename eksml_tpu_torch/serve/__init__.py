@@ -5,6 +5,9 @@
                                (bucket/rung padding, every shape warmed
                                before /healthz turns 200) ──▶ MaskRCNN
                                on the card ──▶ DetectionResult JSON
+
+    ReloadManager (serve/reload.py): verified checkpoint hot-reload,
+    swapped between micro-batches
 """
 
 from eksml_tpu_torch.serve.batcher import (DrainingError,  # noqa: F401
@@ -13,3 +16,4 @@ from eksml_tpu_torch.serve.batcher import (DrainingError,  # noqa: F401
 from eksml_tpu_torch.serve.engine import (InferenceEngine,  # noqa: F401
                                           batch_rungs, bucket_schedule)
 from eksml_tpu_torch.serve.server import ServingServer  # noqa: F401
+from eksml_tpu_torch.serve.reload import ReloadManager  # noqa: F401

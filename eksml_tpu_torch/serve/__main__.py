@@ -3,21 +3,28 @@
 Lifecycle::
 
     finalize_configs(is_training=False)
-      → InferenceEngine(random params from --seed)   # on --device
+      → InferenceEngine(checkpoint | random params)  # on --device
       → ServingServer.start()                # /healthz answers 503
       → engine.warmup()                      # every bucket × rung
       → mark_ready()                         # /healthz flips to 200
+      → hot-reload watcher (with --checkpoint-dir)
       → wait for SIGTERM/SIGINT
       → drain: stop admission, flush in-flight batches, exit 0
 
 Usage::
 
+    # serve what the trainer wrote (newest step unless --step), picking
+    # up new checkpoints every SERVE.RELOAD_POLL_SEC and on
+    # POST /admin/reload
+    python -m eksml_tpu_torch.serve --checkpoint-dir /runs/maskrcnn \\
+        --config SERVE.RELOAD_POLL_SEC=30
+
+    # smoke/load-test mode: seeded random params, ephemeral port
     python -m eksml_tpu_torch.serve --random-params --port 0 \\
         --port-file serve.port --config SERVE.MAX_BATCH_DELAY_MS=5
 
-Serving from a checkpoint (``--checkpoint-dir``) and hot-reload wait
-for the trainer slice; until then ``--random-params`` is the only source
-of params, and the server refuses to start without it.
+The reference's canary, shadow and promotion parts wait for ROADMAP.md
+Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -35,6 +42,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m eksml_tpu_torch.serve",
         description=__doc__.splitlines()[0])
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="training logdir to restore params from (latest "
+                        "step unless --step) and to watch for new steps")
+    p.add_argument("--step", type=int, default=None,
+                   help="explicit checkpoint step")
     p.add_argument("--random-params", action="store_true",
                    help="seeded random params (smoke/load tests; no "
                         "checkpoint needed)")
@@ -58,18 +70,17 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if not args.random_params:
-        from eksml_tpu_torch.serve.engine import CHECKPOINT_ITEM
-
-        p.error("need --random-params: serving from a checkpoint waits "
-                f"for the trainer slice ({CHECKPOINT_ITEM})")
+    if not args.random_params and not args.checkpoint_dir:
+        p.error("need --checkpoint-dir or --random-params")
 
     import torch
 
+    from eksml_tpu_torch import telemetry
     from eksml_tpu_torch.config import config, finalize_configs
     from eksml_tpu_torch.convert import init_params
     from eksml_tpu_torch.serve.batcher import MicroBatcher
     from eksml_tpu_torch.serve.engine import InferenceEngine
+    from eksml_tpu_torch.serve.reload import ReloadManager
     from eksml_tpu_torch.serve.server import ServingServer
 
     config.freeze(False)
@@ -84,13 +95,31 @@ def main(argv=None) -> int:
                         path=args.trace_file)
         install_tracer(tracer)
 
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    engine = InferenceEngine(cfg, params=params, device=args.device)
+    if args.random_params:
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed))
+        engine = InferenceEngine(cfg, params=params, device=args.device)
+    else:
+        engine = InferenceEngine(cfg, checkpoint_dir=args.checkpoint_dir,
+                                 checkpoint_step=args.step,
+                                 device=args.device)
     batcher = MicroBatcher(engine, cfg)
     port = args.port if args.port is not None else int(cfg.SERVE.PORT)
     server = ServingServer(
         batcher, port=port, addr=args.addr, port_file=args.port_file,
         result_masks_default=bool(cfg.SERVE.RESULT_MASKS))
+
+    reload_mgr = None
+    if args.checkpoint_dir:
+        # reload events land next to the trainer's in the logdir
+        telemetry.install(telemetry.FlightRecorder(
+            path=telemetry.events_path_for(args.checkpoint_dir, "serve"),
+            host_id="serve"))
+        reload_mgr = ReloadManager(
+            engine, args.checkpoint_dir, lock=server.lifecycle_lock,
+            poll_sec=float(cfg.SERVE.RELOAD_POLL_SEC),
+            is_draining=server.draining.is_set,
+            check_digest=bool(cfg.SERVE.RELOAD_DIGEST))
+        server.reload_manager = reload_mgr
 
     # SIGTERM/SIGINT → drain; the handler only sets an Event
     stop = threading.Event()
@@ -104,12 +133,17 @@ def main(argv=None) -> int:
     server.start()
     n = engine.warmup()
     server.mark_ready()
+    if reload_mgr is not None:
+        # after warmup: a swap relies on the warm shapes
+        reload_mgr.start()
     log.info("ready: %d warm shape(s) over %d bucket(s) x %s batch "
-             "rung(s) on port %d", n, len(engine.buckets), engine.rungs,
-             server.port)
+             "rung(s) on port %d (params step %s)", n, len(engine.buckets),
+             engine.rungs, server.port, engine.params_step)
     stop.wait()
     log.info("signal received: draining")
     server.drain()
+    if reload_mgr is not None:
+        reload_mgr.stop()
     engine.close()
     if tracer is not None and args.trace_file:
         tracer.flush()

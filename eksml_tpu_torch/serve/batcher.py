@@ -16,8 +16,10 @@ shape — cf. TF-Serving's BatchingSession / Triton's dynamic batcher):
   ``MAX_BATCH_DELAY_MS=0`` is pass-through: every request dispatches
   alone, immediately — the latency floor.
 - the batch pads up to the engine's batch rung and dispatches the
-  pre-warmed (bucket, rung) executable; per-request postprocess
-  (``detections_from_raw``) runs in the dispatcher thread.
+  pre-warmed (bucket, rung) shape on one ``(model, step)`` snapshot
+  of the engine (a hot-reload swap cannot split or relabel a batch);
+  per-request postprocess (``detections_from_raw``) runs in the
+  dispatcher thread.
 
 Every request carries its SLO span chain — ``queue_wait`` / ``pad`` /
 ``device_infer`` / ``postprocess`` — through the telemetry span layer
@@ -276,7 +278,12 @@ class MicroBatcher:
         try:
             images = np.stack([r.canvas for r in batch])
             hw = np.asarray([[r.nh, r.nw] for r in batch], np.float32)
-            out = self.engine.infer(images, hw, batch[0].bucket)
+            # ONE (model, step) snapshot per micro-batch, taken before
+            # dispatch: a hot-reload swap during the device call or the
+            # postprocess never relabels this batch's answers
+            model, served_step = self.engine.params_snapshot()
+            out = self.engine.infer(images, hw, batch[0].bucket,
+                                    model=model)
             t_d1 = time.perf_counter()
             infer_ms = (t_d1 - t_d0) * 1e3
             telemetry.complete_span("device_infer", t_d0, t_d1,
@@ -311,7 +318,7 @@ class MicroBatcher:
                         "boxes": [[float(x) for x in bx] for bx in
                                   out["boxes"][i][order]],
                     }
-                r.served_step = self.engine.params_step
+                r.served_step = served_step
                 t_p1 = time.perf_counter()
                 telemetry.complete_span("postprocess", t_p0, t_p1)
                 r.timings_ms["device_infer"] = round(infer_ms, 3)

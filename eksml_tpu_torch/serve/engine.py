@@ -12,10 +12,22 @@ counts shapes first seen after warmup and must stay 0.
 Every forward runs on one engine-owned thread: PyTorch keeps cuDNN's
 autotune results per thread, so a warmup on the caller's thread would
 leave the dispatcher's first batch to autotune again.
+
+Hot-reload (``serve/reload.py`` drives it): the model holds its
+weights, so :meth:`InferenceEngine.swap_params` copies the serving model
+on the device and loads the restored ``state_dict`` into the copy on the
+caller's thread, off the request path, then swaps the ``(model, step)``
+pair under the engine lock.  The dispatcher takes one
+:meth:`~InferenceEngine.params_snapshot` per micro-batch, so a batch
+never splits across checkpoints and names the step that computed it.
+The shapes do not change, so the warm shape set (and cuDNN's autotune
+cache, keyed by shapes) serves the new weights: ``request_path_compiles``
+stays 0 across a swap.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 import time
@@ -29,9 +41,6 @@ from eksml_tpu_torch import telemetry
 from eksml_tpu_torch.device import resolve_device
 
 log = logging.getLogger(__name__)
-
-#: where checkpoint restore is planned (ROADMAP.md, Queue 1)
-CHECKPOINT_ITEM = "ROADMAP.md Queue 1, item 3 (trainer and checkpoints)"
 
 
 def _serve_knobs(cfg) -> Dict:
@@ -69,26 +78,44 @@ def batch_rungs(cfg) -> List[int]:
 
 class InferenceEngine:
     """Padded predict dispatch on one device.  Thread-safe: the set of
-    seen shapes is guarded by a lock."""
+    seen shapes and the serving ``(model, params_step)`` pair are
+    guarded by a lock.
+
+    Params: ``params`` (a ``MaskRCNN`` state_dict), or the model of a
+    training checkpoint under ``checkpoint_dir`` (a training logdir) at
+    ``checkpoint_step``; "latest" resolves at construction, so
+    ``params_step`` names a real step (None for handed-in params)."""
 
     def __init__(self, cfg, params=None,
                  checkpoint_dir: Optional[str] = None,
+                 checkpoint_step: Optional[int] = None,
                  model=None, device="cuda"):
         from eksml_tpu_torch.models import MaskRCNN
 
         self.device = resolve_device(device)
         if params is None:
-            if checkpoint_dir:
-                raise NotImplementedError(
-                    "restoring serving params from a checkpoint waits for "
-                    f"the trainer slice: {CHECKPOINT_ITEM}")
-            raise ValueError("need params (a MaskRCNN state_dict)")
+            if not checkpoint_dir:
+                raise ValueError("need params (a MaskRCNN state_dict) or "
+                                 "checkpoint_dir")
+            from eksml_tpu_torch.predict.predictor import \
+                restore_predict_params
+            from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+            if checkpoint_step is None:
+                checkpoint_step = CheckpointManager(
+                    checkpoint_dir).latest_step()
+                if checkpoint_step is None:
+                    raise FileNotFoundError(
+                        f"no checkpoints under {checkpoint_dir}")
+            params = restore_predict_params(cfg, checkpoint_dir,
+                                            checkpoint_step)
         self.cfg = cfg
         self.model = model if model is not None \
             else MaskRCNN.from_config(cfg)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
-        self.params_step: Optional[int] = None
+        self.params_step: Optional[int] = (
+            int(checkpoint_step) if checkpoint_step is not None else None)
         self.buckets = bucket_schedule(cfg)
         self.rungs = batch_rungs(cfg)
         self.max_batch = self.rungs[-1]
@@ -118,6 +145,46 @@ class InferenceEngine:
             "eksml_serve_warm_executables",
             "predict shapes warmed so far")
         self._m_warm.set_function(lambda: len(self._exes))
+
+    # -- hot-reload (serve/reload.py drives these) ---------------------
+
+    def params_snapshot(self):
+        """One consistent ``(model, step)`` pair for one micro-batch."""
+        with self._lock:
+            return self.model, self.params_step
+
+    def swap_params(self, new_params: Dict[str, torch.Tensor],
+                    step: Optional[int] = None) -> None:
+        """Serve ``new_params`` (a restored ``state_dict``) as ``step``.
+
+        The names, shapes and dtypes must equal the serving model's (the
+        warm shapes were run with them); any mismatch raises ValueError
+        and the old weights keep serving.  The new model (a copy of the
+        serving one on the device, loaded with ``new_params``) is made
+        here, on the caller's thread; only the reference swap holds the
+        engine lock, so in-flight batches finish on the old model."""
+        serving = self.model
+        old = serving.state_dict()
+        if set(new_params) != set(old):
+            raise ValueError(
+                "params names changed: missing "
+                f"{sorted(set(old) - set(new_params))[:5]}, unexpected "
+                f"{sorted(set(new_params) - set(old))[:5]} — the warm "
+                "shapes would not accept this checkpoint")
+        for k, o in old.items():
+            n = new_params[k]
+            if tuple(n.shape) != tuple(o.shape) or n.dtype != o.dtype:
+                raise ValueError(
+                    f"params tensor {k} changed {tuple(o.shape)}/{o.dtype} "
+                    f"-> {tuple(n.shape)}/{n.dtype} — the warm shapes would "
+                    "not accept this checkpoint")
+        model = copy.deepcopy(serving)
+        model.load_state_dict(new_params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        with self._lock:
+            self.model = model
+            self.params_step = int(step) if step is not None else None
 
     # -- preprocessing (the bucket contract) ---------------------------
 
@@ -190,12 +257,16 @@ class InferenceEngine:
     # -- dispatch ------------------------------------------------------
 
     def infer(self, images: np.ndarray, hw: np.ndarray, bucket: int,
-              rung: Optional[int] = None) -> Dict[str, np.ndarray]:
+              rung: Optional[int] = None,
+              model=None) -> Dict[str, np.ndarray]:
         """Run ``n`` preprocessed canvases (``[n, H, W, 3]`` at the
         bucket's shape, ``hw [n, 2]`` content extents) at the batch
         ``rung`` (default: the smallest that holds ``n``), padding the
-        batch with zero images whose content extent is 1×1.  Returns
-        numpy outputs for the ``n`` real rows only."""
+        batch with zero images whose content extent is 1×1, through
+        ``model`` (default: the serving one, see :meth:`params_snapshot`).
+        Returns numpy outputs for the ``n`` real rows only."""
+        if model is None:
+            model = self.params_snapshot()[0]
         n = int(images.shape[0])
         if rung is None:
             rung = self.rung_for(n)
@@ -209,15 +280,15 @@ class InferenceEngine:
             # point and NMS sees only invalid rows
             pad_hw = np.ones((rung - n, 2), np.float32)
             hw = np.concatenate([hw.astype(np.float32), pad_hw], axis=0)
-        return self._device_thread.submit(self._forward, images, hw,
+        return self._device_thread.submit(self._forward, model, images, hw,
                                           n).result()
 
-    def _forward(self, images: np.ndarray, hw: np.ndarray,
+    def _forward(self, model, images: np.ndarray, hw: np.ndarray,
                  n: int) -> Dict[str, np.ndarray]:
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         h = torch.from_numpy(np.ascontiguousarray(hw, np.float32)) \
             .to(self.device)
-        out = self.model.predict(x, h)
+        out = model.predict(x, h)
         return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
     def close(self) -> None:

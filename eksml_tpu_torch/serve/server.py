@@ -1,6 +1,5 @@
-"""HTTP front-end: ``POST /v1/predict`` + ``/healthz`` + ``/metrics``
-(the port of ``eksml_tpu/serve/server.py``; checkpoint hot-reload and
-``/admin/reload`` wait for the trainer slice).
+"""HTTP front-end: ``POST /v1/predict`` + ``POST /admin/reload`` +
+``/healthz`` + ``/metrics`` (the port of ``eksml_tpu/serve/server.py``).
 
 The ``TelemetryExporter`` pattern (telemetry/exporter.py) applied to
 serving: a daemon-threaded stdlib ``ThreadingHTTPServer`` — no new
@@ -21,6 +20,10 @@ observability plane:
   new work during the flush.  The payload carries the engine/batcher
   state a load test reads (compile counters,
   queue depth, device count).
+- ``POST /admin/reload`` — verified checkpoint hot-reload on demand
+  (``serve/reload.py``): JSON ``{"step": N}`` or an empty body for the
+  newest candidate; 200 with the outcome, 409 on a rejection (the old
+  params keep serving), 503 without a reload manager.
 - ``GET /metrics`` — the process registry as OpenMetrics, the
   ``eksml_serve_*`` family next to everything else; the charts/serve
   HPA scales on these series.
@@ -28,7 +31,9 @@ observability plane:
 Drain (the trainer's preemption discipline applied to serving): SIGTERM →
 stop admission (healthz + predict answer 503) → flush every accepted
 request through the batcher → wait for handler threads to finish
-writing responses → exit 0.  Zero accepted requests are dropped.
+writing responses → exit 0.  Zero accepted requests are dropped.  The
+flush holds ``lifecycle_lock``, the lock a hot-reload swap takes, so a
+swap and a flush never interleave.
 
 Bind failures follow the exporter's rule — port 0 binds an ephemeral
 port published via :attr:`ServingServer.port` and an optional
@@ -134,6 +139,9 @@ class _Handler(BaseHTTPRequestHandler):
         # as a request line — a silent connection desync
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length)
+        if path == "/admin/reload":
+            self._admin_reload(body)
+            return
         if path != "/v1/predict":
             self._send_json(404, {"error": f"no route {path}"})
             return
@@ -149,6 +157,32 @@ class _Handler(BaseHTTPRequestHandler):
             self._predict(body)
         finally:
             s.note_http_done()
+
+    def _admin_reload(self, body: bytes) -> None:
+        """Verify + restore + swap a checkpoint step (JSON ``{"step": N}``;
+        empty body = newest candidate) in THIS handler thread while the
+        dispatcher keeps serving; 409 answers a rejection."""
+        s = self.server_obj
+        mgr = s.reload_manager
+        if mgr is None:
+            self._send_json(503, {"error": "no reload manager: server was "
+                                           "started without a checkpoint "
+                                           "directory"})
+            return
+        step = None
+        if body:
+            try:
+                step = json.loads(body.decode("utf-8")).get("step")
+            except Exception as e:  # noqa: BLE001 — bad input is a 400
+                self._send_json(400, {"error": f"bad reload request: "
+                                               f"{e!r}"})
+                return
+        s.note_http_start()
+        try:
+            outcome = mgr.reload_step(step)
+        finally:
+            s.note_http_done()
+        self._send_json(200 if outcome.get("ok") else 409, outcome)
 
     def _predict(self, body: bytes) -> None:
         # error paths collect (code, payload) and answer OUTSIDE the
@@ -242,6 +276,12 @@ class ServingServer:
         self.result_masks_default = bool(result_masks_default)
         self.ready = threading.Event()     # warmup completed
         self.draining = threading.Event()  # SIGTERM seen / drain begun
+        # THE shared swap/drain lock: the drain flush and a hot-reload
+        # swap both run under it (reload.py re-checks `draining` under it)
+        self.lifecycle_lock = threading.Lock()
+        # ReloadManager when a checkpoint directory is served; None =
+        # /admin/reload answers 503
+        self.reload_manager = None
         self.started_monotonic = time.monotonic()
         self.port: Optional[int] = None
         self._server: Optional[ThreadingHTTPServer] = None
@@ -282,6 +322,10 @@ class ServingServer:
             "batch_rungs": list(eng.rungs),
             "devices": torch.cuda.device_count(),
             "params_step": eng.params_step,
+            "reloads": (self.reload_manager.reloads
+                        if self.reload_manager else 0),
+            "reload_rejected": (self.reload_manager.rejected
+                                if self.reload_manager else 0),
         }
         return code, payload
 
@@ -328,7 +372,12 @@ class ServingServer:
         self.draining.set()
         log.info("drain: admission closed, flushing in-flight "
                  "requests")
-        self.batcher.close(drain=True, timeout=timeout)
+        # a swap either completed before this (the flush serves the new
+        # params) or is rejected "draining" when it re-checks under the
+        # lock; `draining` is set first so a reload not yet holding the
+        # lock bails before its restore
+        with self.lifecycle_lock:
+            self.batcher.close(drain=True, timeout=timeout)
         # batched results are set; give handler threads a moment to
         # write their responses before the listener dies
         deadline = time.monotonic() + 10.0

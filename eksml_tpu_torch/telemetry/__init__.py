@@ -1,6 +1,6 @@
-"""Serving telemetry: the metric registry, its OpenMetrics exposition
-and request spans (the subset of ``eksml_tpu/telemetry`` the serving
-path uses)."""
+"""Telemetry: the metric registry, its OpenMetrics exposition, request
+spans and the flight recorder (the subset of ``eksml_tpu/telemetry``
+the serving path and the trainer's lifecycle use)."""
 
 from eksml_tpu_torch.telemetry.exporter import render_openmetrics  # noqa: F401
 from eksml_tpu_torch.telemetry.registry import (MetricRegistry,  # noqa: F401
@@ -8,3 +8,6 @@ from eksml_tpu_torch.telemetry.registry import (MetricRegistry,  # noqa: F401
 from eksml_tpu_torch.telemetry.tracing import (Tracer,  # noqa: F401
                                                complete_span,
                                                install_tracer)
+from eksml_tpu_torch.telemetry.recorder import (FlightRecorder,  # noqa: F401
+                                                event, events_path_for,
+                                                install)

@@ -1,0 +1,166 @@
+"""Flight recorder: step-correlated structured events for post-mortems
+(the recorder and ``event()`` of ``eksml_tpu/telemetry/recorder.py``,
+over the port's registry; the reference's event sinks feed its goodput
+ledger, which waits for ROADMAP.md Queue 1 item 7).
+
+A SIGTERM, a NaN rollback, a checkpoint walk-back or a reload rejection
+perturbs the metric stream but leaves no trace IN it.  The recorder is
+a bounded in-memory ring of ``{"time", "kind", "step", ...}`` events,
+mirrored line-by-line to ``<logdir>/events-host<i>.jsonl``, so:
+
+- the hang watchdog appends the ring's tail to every hang report (what
+  happened BEFORE the stall is usually the diagnosis);
+- the OpenMetrics exposition carries ``eksml_flight_events_total{kind=}``
+  counters (default registry), so incident *rates* are scrapeable even
+  without the files.
+
+Subsystems call the module-level :func:`event`, which forwards to the
+installed per-process recorder (``Trainer`` installs one) and no-ops
+when none is installed.
+
+Event kinds in use: ``run_start``, ``sigterm``, ``preempt_exit``,
+``nan_observed``, ``rollback``, ``watchdog_dump``, ``checkpoint_save``,
+``checkpoint_skipped``, ``checkpoint_restore``, ``checkpoint_fallback``,
+``checkpoint_quarantined``, ``checkpoint_topology_changed``,
+``eval_start``/``eval_done``, ``serve_reload`` and
+``serve_reload_rejected``.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import threading
+import time
+from typing import Dict, List, Optional
+
+from eksml_tpu_torch.telemetry.registry import default_registry
+
+log = logging.getLogger(__name__)
+
+
+def events_path_for(logdir: Optional[str], host_id: int) -> Optional[str]:
+    """Per-host event file under the run dir (appends stay host-local
+    on the shared filesystem, like the quarantine ledger)."""
+    if not logdir:
+        return None
+    os.makedirs(logdir, exist_ok=True)
+    return os.path.join(logdir, f"events-host{host_id}.jsonl")
+
+
+class FlightRecorder:
+    def __init__(self, capacity: int = 256, path: Optional[str] = None,
+                 host_id: int = 0):
+        self.capacity = max(8, int(capacity))
+        self.path = path
+        self.host_id = host_id
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(
+            maxlen=self.capacity)
+        self._file = open(path, "a") if path else None
+        self.dropped_writes = 0
+
+    def record(self, kind: str, step: Optional[int] = None,
+               **fields) -> Dict:
+        entry = {"time": time.time(), "kind": str(kind),
+                 "host": self.host_id}
+        if step is not None:
+            entry["step"] = int(step)
+        for k, v in fields.items():
+            # events must stay JSON-serializable whatever a caller
+            # hands in (exception objects, paths, numpy scalars).
+            # allow_nan=False in the PROBE too: a NaN/Inf float field
+            # must take the repr() fallback here, not blow up the
+            # strict final serialization below and silently drop the
+            # exact incident event a post-mortem needs
+            try:
+                json.dumps(v, allow_nan=False)
+                entry[k] = v
+            except (TypeError, ValueError):
+                entry[k] = repr(v)
+        line = json.dumps(entry, allow_nan=False)
+        with self._lock:
+            self._ring.append(entry)
+            if self._file is not None:
+                # one write per line + flush: events are rare and each
+                # one is post-mortem evidence — it must hit the shared
+                # fs BEFORE whatever comes next (the process may be
+                # about to exit or hang)
+                try:
+                    self._file.write(line + "\n")
+                    self._file.flush()
+                except OSError:
+                    self.dropped_writes += 1
+        default_registry().counter(
+            "eksml_flight_events",
+            "flight-recorder events by kind",
+            labels={"kind": str(kind)}).inc()
+        return entry
+
+    def tail(self, n: Optional[int] = None) -> List[Dict]:
+        with self._lock:
+            out = list(self._ring)
+        return out if n is None else out[-n:]
+
+    def report(self, n: int = 20) -> str:
+        """Human-readable tail — the watchdog hang-report section."""
+        events = self.tail(n)
+        if not events:
+            return "no events recorded"
+        lines = [f"last {len(events)} event(s), newest last:"]
+        for e in events:
+            ts = time.strftime("%H:%M:%S", time.localtime(e["time"]))
+            extras = ", ".join(
+                f"{k}={v}" for k, v in e.items()
+                if k not in ("time", "kind", "step", "host"))
+            step = f" step={e['step']}" if "step" in e else ""
+            lines.append(
+                f"  {ts} {e['kind']}{step}"
+                + (f" ({extras})" if extras else ""))
+        if self.dropped_writes:
+            lines.append(f"  [{self.dropped_writes} event write(s) "
+                         "failed — mirror file incomplete]")
+        return "\n".join(lines)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                try:
+                    self._file.close()
+                finally:
+                    self._file = None
+
+
+# -- per-process default recorder -------------------------------------
+
+_recorder: Optional[FlightRecorder] = None
+_install_lock = threading.Lock()
+
+
+def install(recorder: Optional[FlightRecorder]) -> Optional[FlightRecorder]:
+    """Install (or with ``None``, remove) the process recorder;
+    returns the previous one so callers can restore it."""
+    global _recorder
+    with _install_lock:
+        prev, _recorder = _recorder, recorder
+    return prev
+
+
+def get() -> Optional[FlightRecorder]:
+    return _recorder
+
+
+def event(kind: str, step: Optional[int] = None, **fields
+          ) -> Optional[Dict]:
+    """Publish one event through the installed recorder (no-op without
+    one).  Never raises: telemetry must not take down training."""
+    rec = _recorder
+    if rec is None:
+        return None
+    try:
+        return rec.record(kind, step=step, **fields)
+    except Exception:  # noqa: BLE001 — observability is best-effort
+        log.exception("flight-recorder event %r failed", kind)
+        return None

@@ -9,8 +9,10 @@ import collections
 import json
 import logging
 import os
+import sys
 import threading
 import time
+import traceback
 from typing import Dict, List, Optional
 
 log = logging.getLogger(__name__)
@@ -84,3 +86,21 @@ def complete_span(name: str, t0: float, t1: float, **attrs) -> None:
     t = _tracer
     if t is not None:
         t._complete(name, t0, t1, attrs)
+
+
+def format_thread_stacks() -> str:
+    """All live threads' stacks as text (the hang watchdog's reports)."""
+    frames = sys._current_frames()
+    threads = {t.ident: t for t in threading.enumerate()}
+    lines = [f"{len(frames)} thread(s) at "
+             f"{time.strftime('%Y-%m-%d %H:%M:%S %z')}", ""]
+    for ident, frame in frames.items():
+        t = threads.get(ident)
+        name = t.name if t else f"unknown-{ident}"
+        daemon = getattr(t, "daemon", "?")
+        lines.append(f"--- thread {name} (ident={ident}, "
+                     f"daemon={daemon}) ---")
+        lines.extend(line.rstrip("\n")
+                     for line in traceback.format_stack(frame))
+        lines.append("")
+    return "\n".join(lines)

@@ -1,7 +1,7 @@
-"""Training of the port's Mask-RCNN: the optimizer, the one step builder
-and a minimal trainer (``eksml_tpu/train.py``: ``lr_schedule``,
-``_decay_mask``, ``make_optimizer``, ``Trainer._train_step``,
-``make_synthetic_train_step``).
+"""Training of the port's Mask-RCNN: the optimizer, the one step builder,
+the trainer's lifecycle and its entry point (``eksml_tpu/train.py``:
+``lr_schedule``, ``_decay_mask``, ``make_optimizer``,
+``Trainer._train_step``, ``Trainer.fit`` and ``main``).
 
 The optimizer is the reference's optax chain, step for step:
 ``clip_by_global_norm`` (only when ``TRAIN.GRADIENT_CLIP`` > 0), weight
@@ -13,27 +13,41 @@ momentum trace (``t = g + m·t``, update ``-lr·t``) equals
 parameter groups is the chain; the learning rate is set from the
 schedule before each update.
 
-``Trainer.fit`` steps over host batches; the config knobs it does not
-read yet are listed in its docstring.
+``Trainer`` checkpoints, auto-resumes, rolls back a divergence and exits
+resumable on SIGTERM; ``python -m eksml_tpu_torch.train --synthetic``
+runs it (see :func:`main`).  The knobs it does not read yet are listed
+in its docstring.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import logging
 import math
+import os
+import sys
 import time
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from eksml_tpu_torch import telemetry
+from eksml_tpu_torch.data.loader import DevicePrefetcher, batch_tensors
 from eksml_tpu_torch.device import resolve_device
 from eksml_tpu_torch.models import MaskRCNN
+from eksml_tpu_torch.parallel.topology import current_topology
+from eksml_tpu_torch.resilience import (ROLLBACK, DivergenceSentinel,
+                                        HangWatchdog, PreemptedError,
+                                        PreemptionHandler)
+from eksml_tpu_torch.utils import CheckpointManager, MetricWriter
 
 log = logging.getLogger("eksml_tpu_torch.train")
 
-# host-side batch entries the model does not take
-_HOST_ONLY = ("image_scale", "image_id")
+#: where the options this slice leaves out are planned (ROADMAP.md)
+PROFILE_ITEM = "ROADMAP.md Queue 1, item 7 (observability)"
+COCO_ITEM = "ROADMAP.md Queue 1, item 5 (eval and the COCO data)"
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -154,84 +168,509 @@ def make_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,
     return step
 
 
+
+
+def _config_digest(cfg) -> str:
+    """Short stable digest of the finalized config (the ``run_start``
+    header field that tells a relaunch with the same config from a
+    restart that changed hyperparameters)."""
+    from eksml_tpu_torch.config import dump_config
+
+    try:
+        return hashlib.sha256(dump_config(cfg).encode()).hexdigest()[:12]
+    except Exception:  # noqa: BLE001 — a digest must never block a run
+        return "unknown"
+
+
 class Trainer:
-    """One process, one device.  ``init_state`` loads parameters (given,
-    or ``convert.init_params`` from ``TRAIN.SEED``); ``fit`` draws each
-    step's sampling priorities from a generator seeded with
-    ``TRAIN.SEED`` and logs the step's metrics every
-    ``TRAIN.LOG_PERIOD`` steps.
+    """One process, one device: the model, the optimizer, the sampling
+    priority generator, the checkpoints and the loop.
 
-    Not read yet (ROADMAP.md Queue 1 item 3 and later): ``logdir`` is
-    kept but nothing is written there (no checkpoints,
-    ``TRAIN.CHECKPOINT_PERIOD``, no metrics writer or ``TELEMETRY.*``),
-    ``TRAIN.EVAL_PERIOD``, ``TRAIN.STEPS_PER_EPOCH``/``MAX_EPOCHS``
-    (``fit`` takes the step count), ``BACKBONE.WEIGHTS``,
-    ``RESILIENCE.*`` (rollback, preemption, watchdog),
-    ``TRAIN.SHARDING.*`` and more than one device (``TRAIN.NUM_CHIPS``
-    only scales the learning rate), ``TRAIN.REMAT``,
-    ``TRAIN.PARAM_DTYPE``, ``TRAIN.PREFETCH_TO_DEVICE``."""
+    The live state is ``model`` (parameters and FrozenBN buffers), the
+    optimizer's momentum buffers, the priority generator and ``step``
+    (None until :meth:`init_state` or :meth:`restore_or_init` set it).
+    A checkpoint holds exactly that (:meth:`checkpoint_state`): each
+    step's priorities come from the generator, whose state stands in for
+    the reference's ``TrainState.rng`` (``fold_in(rng, step)``,
+    ``eksml_tpu/train.py:529``), so a restored run draws the priorities
+    the uninterrupted run would have drawn.
 
-    def __init__(self, cfg, logdir: str, device="cuda"):
+    Not read yet: ``TELEMETRY.*`` beyond the flight recorder and the
+    ``TRACING``/goodput/exporter parts (ROADMAP.md Queue 1 item 7),
+    ``TRAIN.SHARDING.*``, ``TRAIN.SYNC_CHECK_PERIOD`` and more than one
+    device (item 4; ``TRAIN.NUM_CHIPS`` only scales the learning rate),
+    ``TRAIN.REMAT``, ``TRAIN.PARAM_DTYPE``."""
+
+    def __init__(self, cfg, logdir: str, device="cuda", eval_fn=None):
         self.cfg = cfg
         self.logdir = logdir
+        self.eval_fn = eval_fn
         self.device = resolve_device(device)
         self.model = MaskRCNN.from_config(cfg).to(self.device)
         self.optimizer = None
         self.sched = None
         self._step = None
+        self.step: Optional[int] = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.TRAIN.SEED))
+        run_info = {"config_digest": _config_digest(cfg)}
+        self.writer = MetricWriter(logdir, run_info=run_info)
+        self.recorder = None
+        if cfg.TELEMETRY.ENABLED:
+            prev = telemetry.install(telemetry.FlightRecorder(
+                capacity=int(cfg.TELEMETRY.FLIGHT_RECORDER_EVENTS),
+                path=telemetry.events_path_for(logdir, 0)))
+            if prev is not None:
+                prev.close()    # a prior Trainer's recorder in this process
+            self.recorder = telemetry.recorder.get()
+            telemetry.event("run_start", pid=os.getpid(), **run_info)
+        res = cfg.RESILIENCE
+        self.ckpt = CheckpointManager(
+            logdir, digest=bool(res.CHECKPOINT_DIGEST),
+            topology=current_topology(self.device),
+            elastic=bool(res.ELASTIC_RESUME))
+
+    # -- state ---------------------------------------------------------
 
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None
                    ) -> MaskRCNN:
-        """Load ``params`` (a ``state_dict``; seeded from ``TRAIN.SEED``
-        when None) and build the optimizer; returns the model."""
+        """Fresh state at step 0: ``params`` (a ``state_dict``), or the
+        seeded init (``convert.init_params`` from ``TRAIN.SEED``) with
+        ``BACKBONE.WEIGHTS`` loaded over it when set; a new optimizer and
+        the generator reseeded.  Returns the model."""
         if params is None:
             from eksml_tpu_torch.convert import init_params
 
             params = init_params(self.cfg, torch.Generator().manual_seed(
                 int(self.cfg.TRAIN.SEED)))
+            if self.cfg.BACKBONE.WEIGHTS:
+                from eksml_tpu_torch.models.backbone_loader import \
+                    load_r50_npz
+
+                loaded, expected = load_r50_npz(self.cfg.BACKBONE.WEIGHTS,
+                                                params)
+                log.info("backbone weights: loaded %d/%d arrays from %s",
+                         loaded, expected, self.cfg.BACKBONE.WEIGHTS)
         self.model.load_state_dict(params)
         self.model.train()
         self.optimizer, self.sched = make_optimizer(self.model, self.cfg)
         self._step = make_train_step(self.model, self.optimizer, self.sched,
                                      float(self.cfg.TRAIN.GRADIENT_CLIP))
+        self.generator.manual_seed(int(self.cfg.TRAIN.SEED))
+        self.step = 0
         return self.model
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The live state as a checkpoint holds it (references to the
+        live tensors: the checkpoint manager copies them)."""
+        return {"step": int(self.step), "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
+        """Make ``state`` (a :meth:`checkpoint_state` read back) the live
+        state.  Checks names, shapes and dtypes first and raises
+        ``ValueError`` before anything changes on a mismatch."""
+        live = self.model.state_dict()
+        saved = state["model"]
+        if set(saved) != set(live):
+            raise ValueError(
+                "checkpoint model tensors differ from the model: missing "
+                f"{sorted(set(live) - set(saved))[:5]}, unexpected "
+                f"{sorted(set(saved) - set(live))[:5]}")
+        for k, v in saved.items():
+            if v.shape != live[k].shape or v.dtype != live[k].dtype:
+                raise ValueError(
+                    f"checkpoint tensor {k} is {tuple(v.shape)}/{v.dtype}, "
+                    f"the model's {tuple(live[k].shape)}/{live[k].dtype}")
+        groups = [len(g["params"]) for g in state["optimizer"]["param_groups"]]
+        want = [len(g["params"]) for g in self.optimizer.param_groups]
+        if groups != want:
+            raise ValueError(f"checkpoint optimizer groups hold {groups} "
+                             f"parameters, this optimizer {want}")
+        self.model.load_state_dict(saved)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+
+    def restore_or_init(self, step: Optional[int] = None) -> int:
+        """Auto-resume: fresh state (:meth:`init_state`), then the newest
+        checkpoint that verifies and loads (``restore_with_fallback``
+        walks back past corrupt steps), or exactly ``step`` when given
+        (``--load``).  Returns the step the live state is at."""
+        self.init_state()
+        if step is not None:
+            self.load_checkpoint_state(self.ckpt.restore(step))
+        elif self.ckpt.restore_with_fallback(
+                self.load_checkpoint_state) is None:
+            return self.step
+        log.info("resuming from checkpoint step %d", self.step)
+        return self.step
+
+    def _priorities(self, batch: Dict[str, torch.Tensor],
+                    step: int) -> Dict[str, torch.Tensor]:
+        """The sampling priorities of the step taken from ``step``, drawn
+        from the generator."""
+        b, h, w, _ = batch["images"].shape
+        g = batch["gt_boxes"].shape[1]
+        return self.model.make_priorities((b, h, w, g), self.generator)
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items() if k not in _HOST_ONLY}
+        return {k: v.to(self.device) for k, v in batch_tensors(batch).items()}
+
+    # -- the loop ------------------------------------------------------
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
             total_steps: int, start_step: int = 0) -> List[Dict[str, float]]:
-        """Run steps ``start_step .. total_steps - 1`` over ``batches``;
-        returns the metrics logged in this call (one dict per logged
-        step, with ``step`` and ``step_time_s``, the wall time per step
-        since the previous log, which ends on the device's results)."""
-        if self._step is None:
-            self.init_state()
-        period = max(1, int(self.cfg.TRAIN.LOG_PERIOD))
-        logged = []
-        t_prev, steps_since = time.perf_counter(), 0
-        for step in range(start_step, total_steps):
-            batch = self._to_device(next(batches))
-            b, h, w, _ = batch["images"].shape
-            g = batch["gt_boxes"].shape[1]
-            priorities = self.model.make_priorities((b, h, w, g),
-                                                    self.generator)
-            metrics = self._step(batch, priorities, step)
-            steps_since += 1
-            if (step + 1) % period == 0 or step + 1 == total_steps:
-                row = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()
-                row["step"] = step + 1
-                row["step_time_s"] = (now - t_prev) / steps_since
-                t_prev, steps_since = now, 0
-                if not all(math.isfinite(v) for v in row.values()):
-                    log.warning("step %d: non-finite metrics %s", step + 1,
-                                row)
-                log.info("step %d: %s", step + 1, ", ".join(
-                    f"{k} {v:.5g}" for k, v in row.items() if k != "step"))
-                logged.append(row)
+        """Train up to ``total_steps`` over the host ``batches``.
+
+        With live state (:meth:`init_state`, a previous ``fit``) the run
+        continues from it at ``start_step``; without, the first batch
+        triggers :meth:`restore_or_init` and the run continues from the
+        checkpoint's step (``eksml_tpu/train.py:865-879``).
+
+        Per step: checkpoints every ``TRAIN.CHECKPOINT_PERIOD`` epochs of
+        ``TRAIN.STEPS_PER_EPOCH`` steps and at the last step (never while
+        the divergence sentinel has seen a non-finite loss); the sentinel
+        observes the loss at checkpoint steps and every
+        ``RESILIENCE.NAN_CHECK_PERIOD`` steps (0: at log steps) and rolls
+        back to the last good checkpoint without rewinding the data;
+        ``eval_fn(model, step)`` every ``TRAIN.EVAL_PERIOD`` epochs and at
+        the last step; SIGTERM forces a checkpoint and raises
+        :class:`PreemptedError` (exit code ``RESILIENCE.PREEMPT_EXIT_CODE``);
+        the hang watchdog beats at each phase.  With
+        ``TRAIN.PREFETCH_TO_DEVICE`` the next batches are built and copied
+        on a worker thread; it pulls only the batches the steps take.
+
+        Returns the rows logged every ``TRAIN.LOG_PERIOD`` steps and at
+        the last step (also written to ``metrics.jsonl``): the losses,
+        ``learning_rate``, ``grad_norm``, ``images_per_sec`` and
+        ``step_time_ms`` (wall time per step since the previous row,
+        ending on the device's results), and ``step``."""
+        cfg = self.cfg
+        res = cfg.RESILIENCE
+        steps_per_epoch = int(cfg.TRAIN.STEPS_PER_EPOCH)
+        ckpt_every = max(1, int(cfg.TRAIN.CHECKPOINT_PERIOD)) * steps_per_epoch
+        eval_every = max(1, int(cfg.TRAIN.EVAL_PERIOD)) * steps_per_epoch
+        log_period = max(1, int(cfg.TRAIN.LOG_PERIOD))
+        step = start_step if self.step is not None else None
+        preempt = (PreemptionHandler(exit_code=res.PREEMPT_EXIT_CODE).install()
+                   if res.GRACEFUL_SHUTDOWN else None)
+        watchdog = None
+        if res.WATCHDOG_TIMEOUT_SEC > 0:
+            watchdog = HangWatchdog(
+                res.WATCHDOG_TIMEOUT_SEC, report_dir=self.logdir,
+                first_beat_factor=res.WATCHDOG_COMPILE_FACTOR).start()
+            if self.recorder is not None:
+                watchdog.add_report_provider("flight recorder",
+                                             self.recorder.report)
+        sentinel = DivergenceSentinel(patience=res.NAN_PATIENCE,
+                                      max_rollbacks=res.MAX_ROLLBACKS)
+        nan_injected = False
+        first_call = True
+        prefetcher = None
+        source = batches
+        if cfg.TRAIN.PREFETCH_TO_DEVICE:
+            prefetcher = DevicePrefetcher(
+                batches, self.device,
+                limit=max(0, total_steps - (step or start_step)))
+            source = prefetcher
+        logged: List[Dict[str, float]] = []
+        t_last, steps_since_log = time.perf_counter(), 0
+        try:
+            source_iter = iter(source)
+            while True:
+                batch = next(source_iter, None)
+                if batch is None:
+                    break
+                if watchdog:
+                    watchdog.beat("to_device", step)
+                if prefetcher is None:
+                    batch = self._to_device(batch)
+                if step is None:
+                    step = self.restore_or_init()
+                    if step >= total_steps:
+                        break
+                if watchdog:
+                    watchdog.beat("train_step", step + 1)
+                metrics = self._step(batch, self._priorities(batch, step),
+                                     step)
+                if watchdog and first_call:
+                    # the first step ran cuDNN's autotune; from here the
+                    # steady-state deadline applies
+                    watchdog.end_compile_headroom()
+                first_call = False
+                step += 1
+                self.step = step
+                steps_since_log += 1
+
+                if (res.FAULT_INJECT_NAN_STEP and not nan_injected
+                        and step == res.FAULT_INJECT_NAN_STEP):
+                    # chaos hook: poison the state ONCE — every later loss
+                    # is non-finite until the sentinel rolls back
+                    nan_injected = True
+                    log.warning("chaos: injecting NaN into params at step "
+                                "%d (RESILIENCE.FAULT_INJECT_NAN_STEP)", step)
+                    with torch.no_grad():
+                        for t in self.model.state_dict().values():
+                            if t.is_floating_point():
+                                t.mul_(float("nan"))
+
+                log_step = step % log_period == 0 or step == total_steps
+                ckpt_step = step % ckpt_every == 0 or step == total_steps
+                period = int(res.NAN_CHECK_PERIOD)
+                if (ckpt_step or (period > 0 and step % period == 0)
+                        or (period == 0 and log_step)):
+                    action = sentinel.observe(
+                        step, float(metrics["total_loss"]))
+                    if action == ROLLBACK:
+                        good = self._rollback(sentinel, step, watchdog)
+                        if prefetcher is not None:
+                            prefetcher.extend(step - good)
+                        step = good
+                        t_last, steps_since_log = time.perf_counter(), 0
+                        continue
+
+                if log_step:
+                    row = {k: float(v) for k, v in metrics.items()}
+                    now = time.perf_counter()
+                    dt = max(now - t_last, 1e-9)
+                    row["images_per_sec"] = (
+                        batch["images"].shape[0] * steps_since_log / dt)
+                    row["step_time_ms"] = dt * 1e3 / max(1, steps_since_log)
+                    if prefetcher is not None:
+                        row["data/prefetch_wait_ms"] = \
+                            prefetcher.wait_ms_ewma or 0.0
+                    t_last, steps_since_log = now, 0
+                    if self.writer:
+                        self.writer.write_scalars(step, row)
+                    log.info("step %d/%d loss=%.4f (%.2f img/s, %.1f ms)",
+                             step, total_steps, row["total_loss"],
+                             row["images_per_sec"], row["step_time_ms"])
+                    row["step"] = step
+                    logged.append(row)
+
+                if ckpt_step:
+                    if not sentinel.allows_save():
+                        log.warning("skipping checkpoint at step %d: last "
+                                    "observed total_loss is non-finite "
+                                    "(divergence sentinel)", step)
+                        telemetry.event("checkpoint_skipped", step=step,
+                                        reason="non-finite loss observation")
+                    else:
+                        if watchdog:
+                            watchdog.beat("checkpoint_save", step)
+                        if (self.ckpt.save(step, self.checkpoint_state())
+                                and self.writer):
+                            self.writer.write_scalars(step, {
+                                "checkpoint_save_ms":
+                                    self.ckpt.last_save["blocking_ms"]})
+                if self.eval_fn and (step % eval_every == 0
+                                     or step == total_steps):
+                    if watchdog:
+                        watchdog.beat("eval", step)
+                    self._run_eval(step)
+
+                if preempt is not None and preempt.should_checkpoint(
+                        step, res.PREEMPT_SYNC_PERIOD or log_period):
+                    self._graceful_exit(preempt, metrics, step)
+                if step >= total_steps:
+                    break
+                if watchdog:
+                    watchdog.beat("next_batch", step)
+        finally:
+            if watchdog:
+                watchdog.stop()
+            if preempt is not None:
+                preempt.uninstall()
+            if prefetcher is not None:
+                prefetcher.close()
+            # land the background write and the buffered rows; a failure
+            # here is swallowed only while another exception propagates
+            propagating = sys.exc_info()[0] is not None
+            try:
+                self.ckpt.wait()
+                if self.writer:
+                    self.writer.flush()
+            except Exception:
+                if not propagating:
+                    raise
+                log.exception("draining checkpoint/metrics state during "
+                              "shutdown failed (keeping the original "
+                              "exception)")
         return logged
+
+    def _rollback(self, sentinel: DivergenceSentinel, step: int,
+                  watchdog=None) -> int:
+        """Divergence recovery: restore the newest verified checkpoint
+        into the live state and return its step.  The data iterator is
+        NOT rewound: the window that fed the divergence is skipped.
+        Raises ``DivergenceError`` when nothing is restorable or the
+        rollback budget is spent."""
+        if watchdog:
+            watchdog.beat("rollback_restore", step)
+        restored = self.ckpt.restore_with_fallback(
+            self.load_checkpoint_state)
+        if restored is None:
+            raise sentinel.no_checkpoint_to_restore(step)
+        good_step = restored[1]
+        sentinel.register_rollback(step, good_step)
+        telemetry.event("rollback", step=step, to_step=good_step,
+                        first_bad_step=sentinel.first_bad_step)
+        if self.writer:
+            self.writer.write_scalars(
+                good_step, {"resilience/rollback_from": float(step)})
+        return good_step
+
+    def _graceful_exit(self, preempt: PreemptionHandler,
+                       metrics: Dict[str, Any], step: int) -> None:
+        """SIGTERM: commit a forced checkpoint (unless this step is
+        already committed or its loss is non-finite), flush the metrics
+        and raise the resumable exit."""
+        telemetry.default_registry().counter(
+            "eksml_resilience_preemptions",
+            "SIGTERM preemption signals observed").inc()
+        telemetry.event("sigterm", step=step, signal_time=preempt.signal_time)
+        self.ckpt.wait()
+        if self.ckpt.latest_step() == step:
+            log.warning("preemption: step %d already committed; exiting "
+                        "resumable (code %d)", step, preempt.exit_code)
+        elif math.isfinite(float(metrics["total_loss"])):
+            log.warning("preemption: forcing checkpoint at step %d", step)
+            self.ckpt.save(step, self.checkpoint_state(), force=True)
+            self.ckpt.wait()
+            log.warning("preemption: checkpoint at step %d committed; "
+                        "exiting resumable (code %d)", step,
+                        preempt.exit_code)
+        else:
+            log.warning("preemption: last loss non-finite — NOT committing "
+                        "a poisoned checkpoint; exiting resumable (code %d)",
+                        preempt.exit_code)
+        if self.writer:
+            self.writer.write_scalars(step, {"resilience/preempted": 1.0})
+            self.writer.flush()
+        telemetry.event("preempt_exit", step=step,
+                        exit_code=preempt.exit_code)
+        raise preempt.preempted(step)
+
+    def _run_eval(self, step: int) -> None:
+        telemetry.event("eval_start", step=step)
+        t0 = time.perf_counter()
+        ok = True
+        try:
+            with torch.no_grad():
+                results = self.eval_fn(self.model, step)
+            if results and self.writer:
+                self.writer.write_scalars(
+                    step, {f"val/{k}": v for k, v in results.items()})
+        except Exception:  # noqa: BLE001 — a failed eval never stops training
+            ok = False
+            log.exception("eval at step %d failed", step)
+        finally:
+            self.model.train()
+            telemetry.event("eval_done", step=step, ok=ok,
+                            eval_ms=round((time.perf_counter() - t0) * 1e3, 1))
+
+    def close(self) -> None:
+        """Land the last checkpoint and close the writer and recorder
+        (safe to call twice)."""
+        self.ckpt.close()
+        writer, self.writer = self.writer, None
+        if writer:
+            writer.close()
+        recorder, self.recorder = self.recorder, None
+        if recorder is not None:
+            if telemetry.recorder.get() is recorder:
+                telemetry.install(None)
+            recorder.close()
+
+
+# ---- CLI ------------------------------------------------------------
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m eksml_tpu_torch.train",
+        description="Mask-RCNN trainer of the PyTorch/CUDA port")
+    p.add_argument("--logdir", default=None,
+                   help="run directory (default: config TRAIN.LOGDIR)")
+    p.add_argument("--config", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted config overrides")
+    p.add_argument("--load", type=int, default=None,
+                   help="restore exactly this checkpoint step (default: "
+                        "the newest verified one)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on generated data (no COCO on disk)")
+    p.add_argument("--total-steps", type=int, default=None,
+                   help="steps to train to (default: TRAIN.STEPS_PER_EPOCH "
+                        "x TRAIN.MAX_EPOCHS)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help=f"profile N steps (waits for {PROFILE_ITEM})")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without one)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    """``python -m eksml_tpu_torch.train``: train on ``--device`` from the
+    global config with ``--config`` overrides, resuming from the newest
+    verified checkpoint in the logdir.  Exits 0 when done, and with
+    ``RESILIENCE.PREEMPT_EXIT_CODE`` (77) after a SIGTERM's forced
+    checkpoint."""
+    logging.basicConfig(
+        level=logging.INFO, force=True,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    args = parse_args(argv)
+    if args.profile > 0:
+        raise NotImplementedError(f"--profile waits for {PROFILE_ITEM}")
+
+    from eksml_tpu_torch.config import config, finalize_configs
+    from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+
+    config.freeze(False)
+    if args.logdir:
+        config.TRAIN.LOGDIR = args.logdir
+    if args.synthetic:
+        config.DATA.SYNTHETIC = True
+    config.update_args(args.config)
+    cfg = finalize_configs(is_training=True)
+    if not cfg.DATA.SYNTHETIC:
+        raise NotImplementedError(
+            f"training on COCO waits for {COCO_ITEM}; pass --synthetic")
+
+    trainer = Trainer(cfg, cfg.TRAIN.LOGDIR, device=args.device)
+    try:
+        records = SyntheticDataset(
+            num_images=64, height=cfg.PREPROC.MAX_SIZE,
+            width=cfg.PREPROC.MAX_SIZE,
+            num_classes=cfg.DATA.NUM_CLASSES).records()
+        loader = DetectionLoader(records, cfg, cfg.TRAIN.BATCH_SIZE_PER_CHIP,
+                                 seed=cfg.TRAIN.SEED,
+                                 with_masks=cfg.MODE_MASK)
+        total_steps = (args.total_steps if args.total_steps is not None
+                       else cfg.TRAIN.STEPS_PER_EPOCH * cfg.TRAIN.MAX_EPOCHS)
+        start = 0
+        if args.load is not None:
+            start = trainer.restore_or_init(args.load)
+        trainer.fit(loader.batches(None), total_steps, start_step=start)
+    except PreemptedError as e:
+        log.warning("preempted at step %d: exiting with resumable code %d "
+                    "(a relaunch auto-resumes)", e.step, e.exit_code)
+        raise
+    else:
+        log.info("training complete at %d steps", total_steps)
+    finally:
+        propagating = sys.exc_info()[0] is not None
+        try:
+            trainer.close()
+        except Exception:
+            if not propagating:
+                raise
+            log.exception("closing the trainer failed during shutdown "
+                          "(keeping the original exit status)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

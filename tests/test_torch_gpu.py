@@ -434,3 +434,76 @@ def test_forward_256_copies_of_one_roi_match_plain_version(cuda):
                         device=cuda).repeat(1, 256, 1).contiguous()
     got = _forward_matches_plain(feats, rois, 7)
     assert torch.equal(got, got[:, :1].expand_as(got))
+
+
+# ---------------------------------------------------------------------
+# the trainer's lifecycle on the card
+# ---------------------------------------------------------------------
+
+
+def test_checkpoint_save_snapshots_cuda_tensors(cuda, tmp_path):
+    """``save()`` copies every CUDA tensor to the host before it returns:
+    the parameters and momentum buffers, changed in place right after it
+    (as the next SGD step does), do not reach the committed file."""
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.data.loader import make_synthetic_batch
+    from eksml_tpu_torch.train import Trainer
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + ["TRAIN.BATCH_SIZE_PER_CHIP=1",
+                                             "TRAIN.LOG_PERIOD=1"])
+    cfg.freeze()
+    trainer = Trainer(cfg, str(tmp_path), device="cuda")
+    trainer.init_state()
+    batch = make_synthetic_batch(cfg, batch_size=1, image_size=128,
+                                 gt_mask_size=28)
+    trainer.fit(iter([batch]), 1)        # momentum buffers now exist
+    want = {k: v.cpu().clone()
+            for k, v in trainer.model.state_dict().items()}
+    moms = {i: s["momentum_buffer"].cpu().clone()
+            for i, s in trainer.optimizer.state_dict()["state"].items()}
+    big = torch.randn(64 << 20, device=cuda)       # 256 MB: a long copy
+    want["big"] = big.cpu()
+    state = trainer.checkpoint_state()
+    state["model"]["big"] = big
+    assert trainer.ckpt.save(7, state)
+    with torch.no_grad():
+        big.mul_(-1)
+        for p in trainer.model.parameters():
+            p.add_(1.0)
+        for s in trainer.optimizer.state.values():
+            s["momentum_buffer"].mul_(3.0)
+    trainer.ckpt.wait()
+    got = trainer.ckpt.restore(7)
+    for k, v in want.items():
+        assert torch.equal(got["model"][k], v), k
+    for i, m in moms.items():
+        assert torch.equal(got["optimizer"]["state"][i]["momentum_buffer"],
+                           m), i
+    trainer.close()
+
+
+def test_prefetcher_orders_copies_before_the_step(cuda):
+    """Each batch copied on the prefetcher's stream is complete before
+    the consumer's stream reads it, in order, with the host-only entries
+    dropped."""
+    from eksml_tpu_torch.data.loader import DevicePrefetcher
+
+    n = 6
+    shape = (4, 1344, 1344, 3)                    # 87 MB float32
+    base = np.random.RandomState(0).rand(*shape).astype(np.float32)
+    host = ({"images": base + i, "image_id": np.arange(4)}
+            for i in range(n))
+    want = [float(np.float64((base + i).sum(dtype=np.float64)))
+            for i in range(n)]
+    pf = DevicePrefetcher(host, cuda, limit=n)
+    got = []
+    for batch in pf:
+        assert set(batch) == {"images"}
+        assert batch["images"].device.type == "cuda"
+        got.append(float(batch["images"].double().sum()))   # reads at once
+    pf.close()
+    assert len(got) == n
+    for g, w in zip(got, want):
+        assert g == pytest.approx(w, rel=1e-9)

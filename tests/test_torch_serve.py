@@ -176,9 +176,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(serve_cfg,
         OfflinePredictor(serve_cfg, params=from_flax(flax_params))
 
 
-def test_checkpoint_restore_waits_for_the_trainer_slice(serve_cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(serve_cfg, checkpoint_dir="ckpt", device="cpu")
+def test_checkpoint_restore_waits_for_the_trainer_slice(serve_cfg, tmp_path):
+    """The trainer slice has landed: a checkpoint directory is restored
+    (``tests/test_torch_reload.py``), and one without a committed step
+    raises instead of serving anything."""
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        InferenceEngine(serve_cfg, checkpoint_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        InferenceEngine(serve_cfg, device="cpu")
 
 
 def test_host_pre_and_postprocess_match_jax():
