@@ -44,7 +44,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              request-path compiles.  Prints the checkpoint bytes, the
              save's blocking and background times, the restore time and
              the reload's restore and swap times.
-8. train_reference — one training step on the card against the CPU at
+8. dist    — after the train phase, in-process on its thread: a
+             world-size-1 NCCL group; 6 steps of Trainer.fit under
+             ``replicated`` (DDP) and 6 under ``fsdp`` (FSDP2) from the
+             train phase's weights and batches: step 1 and the median of
+             steps 2-6, peak memory, state bytes per device, launches per
+             step (3 / 2 / 8) and the losses against the train phase's
+             (``DIST_STEP1_TOL``, ``DIST_LOSS_TOL``); the replica sync
+             check; the FSDP2
+             checkpoint's gather time, then its restore into a Trainer
+             without a group, bitwise.
+9. ranks   — with two or more devices, two ranks of
+             ``python -m eksml_tpu_torch.train`` under ``fsdp`` formed by
+             the JobSet env (same losses on both, one checkpoint); with
+             one, a line saying so.
+10. train_reference — one training step on the card against the CPU at
              SMOKE widths on a 256² canvas: losses, every gradient and
              every update, and the mask targets.
 
@@ -74,7 +88,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
-          "lifecycle", "train_reference")
+          "lifecycle", "dist", "ranks", "train_reference")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1048,7 +1062,8 @@ def phase_train(cfg, kernels, seed: int, logdir: str,
     assert not moved, f"frozen tensors that changed: {moved}"
     return trainer, it, {"rows": rows, "median_s": median,
                          "images_per_s": BATCH / median, "peak_bytes": peak,
-                         "launches": launches, "launches_step1": step1}
+                         "launches": launches, "launches_step1": step1,
+                         "batches": batches[:TRAIN_STEPS]}
 
 
 # ---------------------------------------------------------------------
@@ -1258,7 +1273,256 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
 
 
 # ---------------------------------------------------------------------
-# phase 8: one training step, the card against the CPU
+# phase 8: data-parallel training through a process group
+# ---------------------------------------------------------------------
+
+#: the largest relative difference a logged loss of the dist phase may
+#: have from the plain train phase's same step.  Step 1 starts from the
+#: same weights, batch and priorities and its forward is deterministic:
+#: 1e-6 (the train_reference phase's card-vs-CPU spread is below it;
+#: measured 0).  From step 2 on the plain train phase differs from itself
+#: run to run: the backward's float atomics change an update in its last
+#: bits, and the proposal top-k, NMS and IoU thresholds turn that into a
+#: different sampled ROI now and then, one ROI of 2048 moving
+#: frcnn_cls_loss by ~1e-3.  Five chip runs of the plain train phase
+#: (PR 5 calls 1-4, PR 6 call 1) spread up to 2.0e-3 over steps 2-6;
+#: the tolerance is five times that.
+DIST_STEP1_TOL = 1e-6
+DIST_LOSS_TOL = 1e-2
+LOSS_KEYS = ("rpn_cls_loss", "rpn_box_loss", "frcnn_cls_loss",
+             "frcnn_box_loss", "mrcnn_loss", "total_loss")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def entry_ranks(nranks: int, argv, workdir: str, timeout: float):
+    """``python -m eksml_tpu_torch.train`` as ``nranks`` processes of one
+    host, formed by the JobSet env (``COORDINATOR_ADDRESS``,
+    ``NUM_PROCESSES=1``, ``LOCAL_WORLD_SIZE``, ``LOCAL_RANK``).  Returns
+    each rank's ``(exit code, output)``; kills every rank on a timeout."""
+    port = _free_port()
+    procs = []
+    for r in range(nranks):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PROCESS_ID", "SLICE_INDEX",
+                            "JOB_COMPLETION_INDEX")}
+        env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES="1", LOCAL_WORLD_SIZE=str(nranks),
+                   LOCAL_RANK=str(r), PYTHONPATH=os.path.dirname(
+                       os.path.abspath(__file__)))
+        log_path = os.path.join(workdir, f"rank{r}.log")
+        with open(log_path, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "eksml_tpu_torch.train"]
+                + list(argv), env=env, stdout=f,
+                stderr=subprocess.STDOUT), log_path))
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, path in procs:
+        with open(path) as f:
+            out.append((p.returncode, f.read()))
+    return out
+
+
+def logged_losses(text: str):
+    """``{step: total_loss}`` from a trainer's ``step k/n loss=x`` lines."""
+    import re
+
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step (\d+)/\d+ loss=([-+.\deE]+|nan|inf)", text)}
+
+
+def phase_dist(cfg, kernels, seed: int, train, workdir: str,
+               device: str = "cuda"):
+    """A world-size-1 NCCL group in this process: ``TRAIN_STEPS`` steps
+    of ``Trainer.fit`` under ``replicated`` (DDP) and under ``fsdp``
+    (FSDP2), each from the train phase's seed-0 weights and batches, held
+    to the train phase's losses and launches; the replica sync check;
+    the FSDP2 checkpoint gathered, then restored bitwise by a Trainer
+    without a group.  ``device="cpu"`` (a gloo group) rehearses the
+    phase on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.parallel.collectives import (
+        assert_replicas_in_sync, warm_mesh_collectives)
+    from eksml_tpu_torch.train import Trainer
+    from eksml_tpu_torch.utils.checkpoint import snapshot_to_host
+
+    out = {}
+    path_launches = {}
+    batches = train["batches"]
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+        **({"device_id": torch.device("cuda", 0)} if device == "cuda"
+           else {}))
+    out["nccl_init_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    warm_mesh_collectives()
+    torch.cuda.synchronize()
+    out["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"[dist] {dist.get_backend()} group of 1 rank: init_process_group "
+        f"{out['nccl_init_ms']:.1f} ms, first all-reduce (communicator "
+        f"set-up) {out['warm_ms']:.1f} ms")
+    live = None
+    try:
+        for strategy in ("replicated", "fsdp"):
+            scfg = cfg.clone()
+            scfg.freeze(False)
+            scfg.update_args([f"TRAIN.SHARDING.STRATEGY={strategy}"])
+            scfg.freeze()
+            logdir = os.path.join(workdir, f"dist_{strategy}")
+            t0 = time.perf_counter()
+            trainer = Trainer(scfg, logdir=logdir, device=device)
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            trainer.init_state(init_params(
+                scfg, torch.Generator().manual_seed(seed)))
+            for k in kernels:
+                k.launches = 0
+            rows = trainer.fit(iter(batches[:1]), 1)
+            torch.cuda.synchronize()
+            step1 = {k.name: k.launches for k in kernels}
+            torch.cuda.reset_peak_memory_stats()
+            rows += trainer.fit(iter(batches[1:]), TRAIN_STEPS, start_step=1)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+            path_launches[strategy] = launches
+            peak = torch.cuda.max_memory_allocated()
+            param_bytes, opt_bytes = trainer.state_bytes()
+            times = sorted(r["step_time_ms"] for r in rows[1:])
+            diffs = [max(abs(r[k] - p[k]) / max(abs(p[k]), 1e-30)
+                         for k in LOSS_KEYS)
+                     for r, p in zip(rows, train["rows"])]
+            diff = max(diffs[1:])
+            rec = {"plan": trainer.plan.describe(), "setup_ms": setup_ms,
+                   "step1_s": rows[0]["step_time_ms"] / 1e3,
+                   "median_ms": times[len(times) // 2], "peak_bytes": peak,
+                   "param_bytes": param_bytes, "opt_bytes": opt_bytes,
+                   "loss_rel_diff_step1": diffs[0], "loss_rel_diff": diff,
+                   "launches": launches}
+            log(f"[dist] {strategy} ({rec['plan']}, "
+                f"{type(trainer.train_module).__name__}): Trainer set-up "
+                f"(mesh, warm-up, plan) {setup_ms:.1f} ms; step 1 "
+                f"{rec['step1_s']:.2f} s; steps 2-{TRAIN_STEPS} median "
+                f"{rec['median_ms']:.1f} ms (plain train phase "
+                f"{train['median_s'] * 1e3:.1f} ms); peak after step 1 "
+                f"{peak / 2 ** 30:.2f} GiB; state per device: parameters "
+                f"and buffers {param_bytes} B, optimizer {opt_bytes} B; "
+                f"launches in step 1 {step1}, in {TRAIN_STEPS} steps "
+                f"{launches}; largest relative loss difference from the "
+                f"plain train phase's same step: step 1 {diffs[0]:.3e} "
+                f"(tolerance {DIST_STEP1_TOL}), steps 2-{TRAIN_STEPS} "
+                f"{diff:.3e} (tolerance {DIST_LOSS_TOL})")
+            _per_step(kernels, step1, 1)
+            _per_step(kernels, launches, TRAIN_STEPS)
+            assert diffs[0] <= DIST_STEP1_TOL and diff <= DIST_LOSS_TOL, [
+                (r["step"], {k: (r[k], p[k]) for k in LOSS_KEYS})
+                for r, p in zip(rows, train["rows"])]
+            if strategy == "replicated":
+                assert assert_replicas_in_sync(trainer.model.state_dict(),
+                                               trainer.generator.get_state())
+                log("[dist] assert_replicas_in_sync: in sync")
+            else:
+                trainer.ckpt.wait()
+                assert trainer.ckpt.latest_step() == TRAIN_STEPS
+                t0 = time.perf_counter()
+                state = trainer.checkpoint_state()
+                torch.cuda.synchronize()
+                rec["gather_ms"] = (time.perf_counter() - t0) * 1e3
+                live = snapshot_to_host(state)
+                del state
+                log(f"[dist] FSDP2 full-state gather of step {TRAIN_STEPS} "
+                    f"for the checkpoint: {rec['gather_ms']:.1f} ms")
+            out[strategy] = rec
+            trainer.close()
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the FSDP2 step, restored by a Trainer without a group
+    plain = Trainer(cfg, logdir=os.path.join(workdir, "dist_fsdp"),
+                    device=device)
+    assert plain.restore_or_init() == TRAIN_STEPS
+    got = plain.checkpoint_state()
+    differ = [k for k in live["model"]
+              if not torch.equal(got["model"][k].cpu(), live["model"][k])]
+    ma, mb = got["optimizer"]["state"], live["optimizer"]["state"]
+    assert set(ma) == set(mb) and len(mb) > 40, (len(ma), len(mb))
+    differ += [f"momentum {i}" for i in mb if not torch.equal(
+        ma[i]["momentum_buffer"].cpu(), mb[i]["momentum_buffer"])]
+    if not torch.equal(got["generator"].cpu(), live["generator"]):
+        differ.append("generator")
+    log(f"[dist] the FSDP2 checkpoint restored without a group: "
+        f"{len(live['model'])} model tensors, {len(mb)} momentum buffers "
+        f"and the generator bitwise equal: {not differ}")
+    assert not differ, differ[:5]
+    plain.close()
+    del plain, got, live
+    torch.cuda.empty_cache()
+
+    out["launches"] = {k.name: sum(c[k.name] for c in path_launches.values())
+                       for k in kernels}
+    out["launches_by_strategy"] = path_launches
+    return out
+
+
+def phase_ranks(workdir: str):
+    """Where two or more devices exist, ``python -m eksml_tpu_torch.train
+    --synthetic`` as 2 ranks under ``fsdp`` (3 steps at the default
+    config): both ranks must log the same losses and one checkpoint
+    commit; with one device, one line saying so."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[ranks] the 2-rank run of python -m eksml_tpu_torch.train was "
+            f"not run: this machine shows {n} CUDA device(s) and the run "
+            "needs one per rank")
+        return None
+    run = os.path.join(workdir, "two_ranks")
+    os.makedirs(run)
+    t0 = time.perf_counter()
+    res = entry_ranks(2, [
+        "--synthetic", "--logdir", run, "--total-steps", "3",
+        "--config", "TRAIN.SHARDING.STRATEGY=fsdp", "TRAIN.NUM_CHIPS=2",
+        f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.STEPS_PER_EPOCH=3",
+        "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1"], run,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    for r, (code, text) in enumerate(res):
+        assert code == 0, f"rank {r} exited {code}:\n{text[-4000:]}"
+    losses = [logged_losses(text) for _, text in res]
+    steps = sorted(int(name) for name in os.listdir(
+        os.path.join(run, "checkpoints")) if name.isdigit())
+    log(f"[ranks] 2 ranks of python -m eksml_tpu_torch.train under fsdp "
+        f"on {n} device(s), 3 steps in {wall:.1f} s (process start, NCCL, "
+        f"cuDNN autotune included): losses rank 0 {losses[0]}, rank 1 "
+        f"{losses[1]}; checkpoints {steps}")
+    assert losses[0] == losses[1] and sorted(losses[0]) == [1, 2, 3]
+    assert steps == [3], steps
+    return {"wall_s": wall, "losses": losses[0]}
+
+
+# ---------------------------------------------------------------------
+# phase 9: one training step, the card against the CPU
 # ---------------------------------------------------------------------
 
 
@@ -1411,7 +1675,8 @@ def main(argv=None) -> int:
     # the lifecycle phase reloads into the serve phase's engine and
     # resumes the train phase's run
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-    engine = serve = train = life = None
+    engine = serve = train = life = dist_out = None
+    ranks = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
@@ -1419,7 +1684,7 @@ def main(argv=None) -> int:
             phase_reference(engine.model, args.seed)
         if "profile" in phases:
             phase_profile(engine, args.seed)
-        if {"train", "lifecycle"} & set(phases):
+        if {"train", "lifecycle", "dist"} & set(phases):
             cfg = train_config()
             trainer, batches, train = phase_train(
                 cfg, KERNELS, args.seed, os.path.join(workdir, "train"),
@@ -1439,8 +1704,12 @@ def main(argv=None) -> int:
             trainer.close()
             del trainer, batches
             torch.cuda.empty_cache()
+            if "dist" in phases:
+                dist_out = phase_dist(cfg, KERNELS, args.seed, train, workdir)
         if engine is not None:
             engine.close()
+        if "ranks" in phases:
+            ranks = phase_ranks(workdir)
         if "train_reference" in phases:
             phase_train_reference(args.seed)
     finally:
@@ -1469,7 +1738,9 @@ def main(argv=None) -> int:
                 "launches_by_path": {
                     "serve": serve["launches"][k.name] if serve else None,
                     "train": train["launches"][k.name] if train else None,
-                    "lifecycle": life["launches"][k.name] if life else None},
+                    "lifecycle": life["launches"][k.name] if life else None,
+                    "dist": (dist_out["launches"][k.name] if dist_out
+                             else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -1483,12 +1754,20 @@ def main(argv=None) -> int:
             })
         print(json.dumps({"kernels": out}), flush=True)
     card = gpu_name_and_limit()
+    cards = "; ".join(card.splitlines())    # one line per device
     if life is not None:
         keys = ("ckpt_bytes", "save_blocking_ms", "save_write_ms",
                 "restore_ms", "reload_verify_ms", "reload_restore_ms",
                 "reload_swap_ms")
-        log(f"[lifecycle] on {card}: " + json.dumps(
+        log(f"[lifecycle] on {cards}: " + json.dumps(
             {key: life[key] for key in keys}))
+    if dist_out is not None:
+        keys = ("nccl_init_ms", "warm_ms", "replicated", "fsdp")
+        log(f"[dist] on {cards}: plain train phase median "
+            f"{train['median_s'] * 1e3:.1f} ms, peak {train['peak_bytes']} B; "
+            + json.dumps({key: dist_out[key] for key in keys}))
+    if ranks is not None:
+        log(f"[ranks] on {cards}: " + json.dumps(ranks))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

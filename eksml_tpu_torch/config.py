@@ -4,7 +4,8 @@ The port's own copy of ``eksml_tpu/config.py``: the same keys, defaults
 and ``finalize_configs`` checks, so one override list configures both
 packages.  It differs in two places: the sharding-strategy inventory is a
 local tuple (the JAX package keeps it in its sharding module), and
-``config_from_env`` (JobSet rank plumbing) waits for the multi-GPU slice.
+``config_from_env`` composes the host rank with the port's own
+``parallel/distributed._rank_from_env``.
 
 
 Re-creates the config UX of the reference stack: TensorPack's
@@ -31,6 +32,7 @@ from __future__ import annotations
 import ast
 import copy
 import json
+import os
 import pprint
 from typing import Any, Iterable, List
 
@@ -844,3 +846,31 @@ SMOKE_OVERRIDES = (
 
 def dump_config(cfg: AttrDict = None) -> str:
     return json.dumps((cfg or _C).to_dict(), indent=2, default=str)
+
+
+def config_from_env(cfg: AttrDict = None) -> AttrDict:
+    """Fill comm-layer settings from JobSet downward-API env vars
+    (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and the host rank; the
+    per-host ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` are read by
+    ``parallel/distributed.initialize_from_env`` itself)."""
+    cfg = cfg or _C
+    cfg.freeze(False)
+    # optimized-image baked defaults (container-optimized/Dockerfile);
+    # explicit --config overrides still win because they are applied
+    # after config_from_env in train.main
+    if os.environ.get("EKSML_DEFAULT_PRECISION"):
+        cfg.TRAIN.PRECISION = os.environ["EKSML_DEFAULT_PRECISION"]
+    if os.environ.get("EKSML_DEFAULT_BATCH_PER_CHIP"):
+        cfg.TRAIN.BATCH_SIZE_PER_CHIP = int(
+            os.environ["EKSML_DEFAULT_BATCH_PER_CHIP"])
+    cfg.TPU.COORDINATOR_ADDRESS = os.environ.get(
+        "COORDINATOR_ADDRESS", cfg.TPU.COORDINATOR_ADDRESS)
+    cfg.TPU.NUM_PROCESSES = int(os.environ.get(
+        "NUM_PROCESSES", cfg.TPU.NUM_PROCESSES))
+    if any(k in os.environ for k in ("PROCESS_ID", "SLICE_INDEX",
+                                     "JOB_COMPLETION_INDEX")):
+        from eksml_tpu_torch.parallel.distributed import _rank_from_env
+
+        cfg.TPU.PROCESS_ID = _rank_from_env(os.environ)
+    cfg.freeze()
+    return cfg

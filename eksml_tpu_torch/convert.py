@@ -11,6 +11,11 @@ port's ``state_dict``; module names match, so only layouts change:
   and W, then laid out IOHW;
 - FrozenBN ``scale/bias/mean/var`` and biases are copied.
 
+``flax_leaves`` is the inverse view: the port's tensors under their
+Flax names and layouts, in the order ``jax.tree.leaves`` visits the
+Flax tree (keys sorted at every level) — what the replica fingerprint
+(``parallel/collectives.py``) walks.
+
 ``init_params`` is the port's own seeded init, following Flax's
 defaults: lecun-normal kernels (truncated normal, variance 1/fan_in),
 zero biases, FrozenBN ones and zeros.  It draws from a ``torch.Generator``
@@ -19,7 +24,7 @@ and gives other numbers than ``jax.random`` for the same seed.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +62,27 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[name] = torch.from_numpy(np.array(v, np.float32))
     return sd
+
+
+def flax_leaves(state_dict: Mapping[str, torch.Tensor]
+                ) -> List[Tuple[str, torch.Tensor]]:
+    """``[(flax_name, tensor in the Flax layout), ...]`` in Flax leaf
+    order: the inverse of :func:`from_flax` (views, no copies, on the
+    tensors' device)."""
+    out = []
+    for name, t in state_dict.items():
+        if name.endswith(".weight"):
+            base = name[:-len(".weight")]
+            if t.dim() == 2:
+                v = t.t()
+            elif base.endswith("maskrcnn.deconv"):
+                v = t.permute(2, 3, 0, 1).flip(0, 1)
+            else:
+                v = t.permute(2, 3, 1, 0)
+            out.append((base + ".kernel", v))
+        else:
+            out.append((name, t))
+    return sorted(out, key=lambda kv: kv[0].split("."))
 
 
 def init_params(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:

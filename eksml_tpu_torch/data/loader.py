@@ -134,19 +134,32 @@ class DetectionLoader:
     random short edge in ``PREPROC.TRAIN_SHORT_EDGE_SIZE``, random
     horizontal flip, square ``PREPROC.MAX_SIZE`` canvas, GT padded to
     ``DATA.MAX_GT_BOXES`` (crowds last), bbox-cropped GT masks of
-    ``gt_mask_size``²."""
+    ``gt_mask_size``².
+
+    ``num_hosts`` / ``host_id``: the ranks and this rank (one per GPU);
+    each reads its strided shard of ``records``.  With ``num_slices > 1``
+    slice ``s`` owns ``records[s::num_slices]`` and its ranks restride
+    within it (ranks are slice-major): the same records in all, each read
+    once, but a rank's reads stay in its own slice's shard."""
 
     def __init__(self, records: List[Dict], cfg, batch_size: int,
                  is_training: bool = True, num_hosts: int = 1,
                  host_id: int = 0, seed: int = 0, with_masks: bool = True,
-                 gt_mask_size: int = 56):
+                 gt_mask_size: int = 56, num_slices: int = 1):
         if not records:
             raise ValueError("empty dataset")
         if tuple(getattr(cfg.PREPROC, "BUCKETS", ()) or ()) and is_training:
             raise NotImplementedError(
                 "PREPROC.BUCKETS: the port's loader pads to the square "
                 "PREPROC.MAX_SIZE canvas only (ROADMAP.md Queue 1)")
-        self.records = records[host_id::num_hosts] or records[:1]
+        num_slices = max(1, int(num_slices))
+        if num_slices > 1 and num_hosts % num_slices == 0:
+            per_slice = num_hosts // num_slices
+            shard = records[host_id // per_slice::num_slices][
+                host_id % per_slice::per_slice]
+        else:
+            shard = records[host_id::num_hosts]
+        self.records = shard or records[:1]
         for rec in self.records:
             if rec.get("_image") is None:
                 raise NotImplementedError(

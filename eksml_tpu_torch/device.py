@@ -10,6 +10,10 @@ def resolve_device(device="cuda") -> torch.device:
     no CUDA device is present (the port never falls back to the CPU on
     its own — a caller that wants the CPU passes ``device="cpu"``).
 
+    With a process group up, a bare ``"cuda"`` is this process's own
+    card, ``cuda:LOCAL_RANK``, made the current device (one process per
+    GPU, ``parallel/distributed.py``).
+
     On CUDA this also pins true float32 (cuDNN convolutions default to
     TF32, which keeps about three decimal digits, while the reference
     computes ``TRAIN.PRECISION=float32`` in full float32) and turns on
@@ -20,6 +24,11 @@ def resolve_device(device="cuda") -> torch.device:
             raise RuntimeError(
                 f"device {str(dev)!r} requested but torch.cuda.is_available() "
                 "is False; pass device='cpu' to run on the CPU")
+        if dev.index is None and torch.distributed.is_initialized():
+            from eksml_tpu_torch.parallel.distributed import local_rank
+
+            dev = torch.device("cuda", local_rank())
+            torch.cuda.set_device(dev)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.benchmark = True

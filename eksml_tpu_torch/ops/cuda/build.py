@@ -5,7 +5,9 @@ alone into ``_build/lib<name>-<digest>.so`` (the digest covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds and an unchanged one is reused).  :func:`build` starts
 one ``nvcc`` per source, all at once, and waits for all of them.
-Nothing is built at import time.
+With a process group up, local rank 0 of each host builds and the
+other ranks wait at a barrier, then load what it built.  Nothing is
+built at import time.
 """
 
 from __future__ import annotations
@@ -67,7 +69,29 @@ def _target(name: str):
 def build(names: Sequence[str]) -> Dict[str, BuildResult]:
     """Build every named source that has no up-to-date library, one
     ``nvcc`` process per source, all started together.  Raises with
-    nvcc's output if any build fails."""
+    nvcc's output if any build fails.  Under a process group of more
+    than one rank this is a collective: every rank must call it."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return _build(names)
+    from eksml_tpu_torch.parallel.distributed import barrier, local_rank
+
+    err = None
+    if local_rank() == 0:
+        try:
+            results = _build(names)
+        except RuntimeError as e:    # the others must still pass the barrier
+            err = e
+    barrier()
+    if err is not None:
+        raise err
+    if local_rank() != 0:
+        results = _build(names)      # local rank 0's libraries, reused
+    return results
+
+
+def _build(names: Sequence[str]) -> Dict[str, BuildResult]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     running = {}

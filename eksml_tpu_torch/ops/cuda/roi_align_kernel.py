@@ -268,6 +268,13 @@ class RoiAlignKernels:
     def __iter__(self):
         return iter((self.fwd, self.bwd, self.copy))
 
+    def load(self) -> None:
+        """Build and load every kernel's library now, not at its first
+        launch (a collective under a process group: the first launch of
+        the backward runs on autograd's thread, mid-backward)."""
+        for name in sorted({k.library for k in self}):
+            build.load(name)
+
     def zero_seed(self, shape: Sequence[int],
                   device: torch.device) -> torch.Tensor:
         key = (tuple(shape), str(device))

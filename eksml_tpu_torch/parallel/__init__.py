@@ -1,1 +1,4 @@
-"""Topology descriptors of the port (one process, one device until\nmulti-GPU, ROADMAP.md Queue 1 item 4)."""
+"""Multi-GPU training of the port: process groups from the JobSet env
+(``distributed``), the mesh (``mesh``), the sharding plan
+(``sharding``), collectives (``collectives``) and topology descriptors
+(``topology``)."""

@@ -1,17 +1,18 @@
-"""Topology descriptors: what a checkpoint was saved ON (the subset of
-``eksml_tpu/parallel/topology.py`` one process on one device needs).
+"""Topology descriptors: what a checkpoint was saved ON (the port of
+``eksml_tpu/parallel/topology.py``).
 
 The checkpoint manager persists a descriptor next to each step's
 integrity manifest (``resilience/integrity.py``) and compares it with
 the current launch's at restore time: a step saved on another topology
-restores (every tensor is whole on one device) after the difference is
-logged.  Resharding across devices waits for multi-GPU (ROADMAP.md
-Queue 1 item 4).
+(another world size, strategy or card) restores after the difference is
+logged — checkpoints hold whole tensors, so any layout reads any step —
+unless ``RESILIENCE.ELASTIC_RESUME`` is off.
 
 A descriptor is a plain JSON-serializable dict (one key per
 :data:`FIELDS` entry); :func:`describe` and :func:`diff` render the
 one-liners the restore log and the flight recorder carry.  The port
-adds ``device_kind`` (the card's name) to the reference's fields.
+adds ``device_kind`` (the card's name) to the reference's fields; its
+``process_count`` counts ranks (one per GPU), the reference's hosts.
 """
 
 from __future__ import annotations
@@ -30,23 +31,43 @@ FIELDS = ("mesh_shape", "mesh_axes", "num_slices", "strategy",
           "process_count", "device_kind")
 
 
-def current_topology(device) -> Dict[str, Any]:
-    """Descriptor of the topology THIS process trains on: one process,
-    one ``device`` (a ``torch.device``), every tensor replicated."""
+def current_topology(device="cpu", plan=None, mesh=None,
+                     num_slices: int = 1) -> Dict[str, Any]:
+    """Descriptor of the topology THIS process trains on ``device``,
+    from the live plan (``parallel/sharding.ShardingPlan``; ``None``:
+    one process, one device, replicated): ``mesh`` is the plan's
+    ``DeviceMesh``, or ``None`` without a process group (then the
+    plan's own 1-device shape).  The fsdp and model widths are the
+    plan's resolved ones, not the raw knobs (0 means "every device of a
+    slice")."""
     import torch
 
+    from eksml_tpu_torch.parallel.distributed import process_count
+
+    if mesh is not None:
+        shape = [int(s) for s in mesh.mesh.shape]
+        axes = [str(a) for a in mesh.mesh_dim_names]
+    elif plan is not None:
+        shape = [int(s) for s in plan.mesh_shape]
+        axes = [str(a) for a in plan.mesh_axes]
+    else:
+        shape, axes = [1, 1], ["data", "model"]
+    n = 1
+    for s in shape:
+        n *= s
     device = torch.device(device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
     return {
-        "mesh_shape": [1, 1],
-        "mesh_axes": ["data", "model"],
-        "num_slices": 1,
-        "strategy": "replicated",
-        "fsdp_axis_size": 1,
-        "model_axis_size": 1,
-        "num_devices": 1,
-        "process_count": 1,
+        "mesh_shape": shape,
+        "mesh_axes": axes,
+        "num_slices": int(num_slices),
+        "strategy": str(plan.strategy) if plan is not None else "replicated",
+        "fsdp_axis_size": int(plan.axis_size) if plan is not None else 1,
+        "model_axis_size": (int(plan.model_axis_size) if plan is not None
+                            else 1),
+        "num_devices": n,
+        "process_count": process_count(),
         "device_kind": kind,
     }
 

@@ -1,5 +1,5 @@
 """Graceful preemption: SIGTERM → forced checkpoint → resumable exit (a
-copy of ``eksml_tpu/resilience/preemption.py`` for one process).
+copy of ``eksml_tpu/resilience/preemption.py``).
 
 Kubernetes sends SIGTERM and waits ``terminationGracePeriodSeconds``
 before SIGKILL (the chart sizes that window to cover a forced
@@ -10,10 +10,10 @@ next step boundary in the fit loop, which then exits with
 matches that exit code and restarts the run without burning a
 ``maxRestarts`` budget entry.
 
-The reference agrees the flag across hosts with a collective every
-``RESILIENCE.PREEMPT_SYNC_PERIOD`` steps; the port runs one process
-(multi-GPU waits for ROADMAP.md Queue 1 item 4), so the local flag is
-the verdict.
+Under a process group the flag is agreed across ranks with a
+collective every ``RESILIENCE.PREEMPT_SYNC_PERIOD`` steps, as the
+reference agrees it across hosts: a SIGTERM on any rank makes every
+rank commit the forced checkpoint together and exit resumable.
 """
 
 from __future__ import annotations
@@ -136,10 +136,24 @@ class PreemptionHandler:
         self._flag.set()
 
     def should_checkpoint(self, step: int, sync_period: int = 1) -> bool:
-        """Whether to checkpoint now and exit: the local flag, checked every
-        step (one process; ``step`` and ``sync_period`` keep the
-        reference's signature for the multi-process agreement)."""
-        return self.requested
+        """Cross-rank agreement on "checkpoint now and exit".
+
+        Without a process group: the local flag, checked every step.
+        With one: the sum of every rank's flag every ``sync_period``
+        steps — a collective, so ALL ranks call this at the same steps
+        (the fit loop calls it unconditionally each step)."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return self.requested
+        if sync_period <= 0:
+            sync_period = 1
+        if step % sync_period != 0:
+            return False
+        from eksml_tpu_torch.parallel.collectives import cross_host_sum
+
+        total = cross_host_sum({"preempt": 1.0 if self.requested else 0.0})
+        return float(total["preempt"]) > 0.0
 
     def preempted(self, step: int) -> PreemptedError:
         return PreemptedError(self.exit_code, step)

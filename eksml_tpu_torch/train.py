@@ -17,6 +17,14 @@ schedule before each update.
 resumable on SIGTERM; ``python -m eksml_tpu_torch.train --synthetic``
 runs it (see :func:`main`).  The knobs it does not read yet are listed
 in its docstring.
+
+Across GPUs (one process each, ``parallel/distributed.py``) the model
+trains under the sharding plan's wrapper (``parallel/sharding.py``:
+DDP or FSDP2).  Every rank takes its slice of the global batch; the
+losses are per-image means over the batch, so with equal slices the
+wrappers' gradient average is the global batch's gradient, and the
+logged losses and ``grad_norm`` are averaged across ranks before
+anything reads them.
 """
 
 from __future__ import annotations
@@ -32,16 +40,28 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from eksml_tpu_torch import telemetry
 from eksml_tpu_torch.data.loader import DevicePrefetcher, batch_tensors
 from eksml_tpu_torch.device import resolve_device
 from eksml_tpu_torch.models import MaskRCNN
+from eksml_tpu_torch.parallel.collectives import (assert_replicas_in_sync,
+                                                  warm_mesh_collectives)
+from eksml_tpu_torch.parallel.distributed import (barrier, broadcast_object,
+                                                  is_coordinator,
+                                                  process_count,
+                                                  process_index)
+from eksml_tpu_torch.parallel.sharding import (ShardingPlan,
+                                               publish_state_byte_gauges)
 from eksml_tpu_torch.parallel.topology import current_topology
 from eksml_tpu_torch.resilience import (ROLLBACK, DivergenceSentinel,
                                         HangWatchdog, PreemptedError,
                                         PreemptionHandler)
 from eksml_tpu_torch.utils import CheckpointManager, MetricWriter
+from eksml_tpu_torch.utils.checkpoint import (full_optimizer_state,
+                                              full_state_dict,
+                                              load_full_state)
 
 log = logging.getLogger("eksml_tpu_torch.train")
 
@@ -114,9 +134,21 @@ def make_optimizer(model: torch.nn.Module, cfg):
     return opt, sched
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: the square root of the sum of squares."""
-    return torch.sqrt(sum((t * t).sum() for t in tensors))
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (FSDP2), ``t`` itself otherwise."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def global_norm(tensors: Sequence[torch.Tensor],
+                group=None) -> torch.Tensor:
+    """``optax.global_norm``: the square root of the sum of squares.
+    DTensor gradients (FSDP2 shards) add their local squares, summed
+    over ``group`` (the shard group) by one all-reduce, so the norm is
+    the whole gradients' and never a partial."""
+    total = sum((t * t).sum() for t in map(_local, tensors))
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
@@ -124,19 +156,26 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
     """``optax.clip_by_global_norm`` in place, with the global ``norm``
     of ``grads`` given: unchanged below ``max_norm``, else each gradient
     becomes ``(g / norm) · max_norm`` (optax's expression; not
-    ``clip_grad_norm_``, which adds 1e-6 to the norm)."""
+    ``clip_grad_norm_``, which adds 1e-6 to the norm).  A DTensor is
+    scaled in its local shard."""
     keep = norm < max_norm
-    for g in grads:
+    for g in map(_local, grads):
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def make_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,
-                    sched: Callable[[int], float], gradient_clip: float = 0.0):
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    sched: Callable[[int], float], gradient_clip: float = 0.0,
+                    norm_group=None):
     """The one training step: ``step(batch, priorities, step_index)`` →
     metrics (the losses, ``learning_rate`` and ``grad_norm``, as tensors
     on the model's device except the learning rate) after one update of
     ``model`` in place.  ``grad_norm`` is of the raw gradients, before
-    clipping, as ``train.py:550``."""
+    clipping, as ``train.py:550``.
+
+    ``model`` may be the plan's wrapper (DDP, or a module under FSDP2
+    with ``norm_group`` its shard group).  Under a process group the
+    losses and ``grad_norm`` are averaged across ranks (one all-reduce),
+    so every rank returns the same metrics: the global batch's."""
     params = [p for group in optimizer.param_groups
               for p in group["params"]]
 
@@ -152,17 +191,22 @@ def make_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, norm_group)
         if gradient_clip > 0:
             clip_by_global_norm_(grads, gradient_clip, norm)
         lr = sched(step_index)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
-        metrics: Dict[str, object] = {k: v.detach()
-                                      for k, v in losses.items()}
+        values = {k: v.detach() for k, v in losses.items()}
+        values["grad_norm"] = norm.detach()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            vec = torch.stack(list(values.values()))
+            dist.all_reduce(vec)
+            vec = vec / dist.get_world_size()
+            values = dict(zip(values, vec))
+        metrics: Dict[str, object] = dict(values)
         metrics["learning_rate"] = lr
-        metrics["grad_norm"] = norm.detach()
         return metrics
 
     return step
@@ -183,7 +227,8 @@ def _config_digest(cfg) -> str:
 
 
 class Trainer:
-    """One process, one device: the model, the optimizer, the sampling
+    """One process, one device (a rank of a process group, or alone): the
+    model, the sharding plan it trains under, the optimizer, the sampling
     priority generator, the checkpoints and the loop.
 
     The live state is ``model`` (parameters and FrozenBN buffers), the
@@ -193,20 +238,47 @@ class Trainer:
     step's priorities come from the generator, whose state stands in for
     the reference's ``TrainState.rng`` (``fold_in(rng, step)``,
     ``eksml_tpu/train.py:529``), so a restored run draws the priorities
-    the uninterrupted run would have drawn.
+    the uninterrupted run would have drawn.  Every rank draws the
+    priorities of the whole global batch from its generator and takes its
+    own rows, so the generators stay equal and a restore at another world
+    size draws what the uninterrupted run would have drawn.
 
-    Not read yet: ``TELEMETRY.*`` beyond the flight recorder and the
-    ``TRACING``/goodput/exporter parts (ROADMAP.md Queue 1 item 7),
-    ``TRAIN.SHARDING.*``, ``TRAIN.SYNC_CHECK_PERIOD`` and more than one
-    device (item 4; ``TRAIN.NUM_CHIPS`` only scales the learning rate),
-    ``TRAIN.REMAT``, ``TRAIN.PARAM_DTYPE``."""
+    Under a process group (``parallel/distributed.initialize_from_env``)
+    ``TRAIN.SHARDING.*`` picks the wrapper (``parallel/sharding.py``),
+    ``TRAIN.NUM_CHIPS`` must equal the world size (it sets the global
+    batch the learning rate is scaled to), the coordinator alone writes
+    the metrics and the checkpoints, each rank keeps its own flight
+    events, and every decision that ends or rewinds the loop (rollback,
+    preemption, the last step) is taken on values all ranks share.
+    ``TRAIN.SYNC_CHECK_PERIOD`` runs the replica sync check under
+    ``replicated``.
+
+    Not read yet: ``TELEMETRY.*`` beyond the flight recorder, the host
+    aggregation and the ``TRACING``/goodput/exporter parts (ROADMAP.md
+    Queue 1 item 7), ``TRAIN.REMAT``, ``TRAIN.PARAM_DTYPE``."""
 
     def __init__(self, cfg, logdir: str, device="cuda", eval_fn=None):
         self.cfg = cfg
         self.logdir = logdir
         self.eval_fn = eval_fn
         self.device = resolve_device(device)
+        self.world, self.rank = process_count(), process_index()
+        if dist.is_initialized() and int(cfg.TRAIN.NUM_CHIPS) != self.world:
+            raise ValueError(
+                f"TRAIN.NUM_CHIPS={cfg.TRAIN.NUM_CHIPS} but the process "
+                f"group has {self.world} rank(s): the learning rate is "
+                "scaled to TRAIN.NUM_CHIPS x TRAIN.BATCH_SIZE_PER_CHIP "
+                "images, so set TRAIN.NUM_CHIPS to the world size")
+        self.plan = ShardingPlan.from_config(cfg)
+        warm_mesh_collectives(self.plan.mesh)
+        if self.device.type == "cuda":
+            from eksml_tpu_torch.ops.roi_align import KERNELS
+
+            KERNELS.load()
         self.model = MaskRCNN.from_config(cfg).to(self.device)
+        #: the module the step calls (the plan's wrapper around
+        #: ``model``), set by the first :meth:`init_state`
+        self.train_module: Optional[torch.nn.Module] = None
         self.optimizer = None
         self.sched = None
         self._step = None
@@ -214,20 +286,29 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.TRAIN.SEED))
         run_info = {"config_digest": _config_digest(cfg)}
-        self.writer = MetricWriter(logdir, run_info=run_info)
+        self.writer = (MetricWriter(logdir, run_info=run_info)
+                       if is_coordinator() else None)
         self.recorder = None
         if cfg.TELEMETRY.ENABLED:
+            # one flight recorder per rank: incidents are per-rank facts
             prev = telemetry.install(telemetry.FlightRecorder(
                 capacity=int(cfg.TELEMETRY.FLIGHT_RECORDER_EVENTS),
-                path=telemetry.events_path_for(logdir, 0)))
+                path=telemetry.events_path_for(logdir, self.rank),
+                host_id=self.rank))
             if prev is not None:
                 prev.close()    # a prior Trainer's recorder in this process
             self.recorder = telemetry.recorder.get()
-            telemetry.event("run_start", pid=os.getpid(), **run_info)
+            telemetry.event("run_start", pid=os.getpid(),
+                            host_count=self.world, **run_info)
+        if is_coordinator():
+            log.info("sharding plan: %s over mesh %s", self.plan.describe(),
+                     dict(zip(self.plan.mesh_axes, self.plan.mesh_shape)))
         res = cfg.RESILIENCE
         self.ckpt = CheckpointManager(
             logdir, digest=bool(res.CHECKPOINT_DIGEST),
-            topology=current_topology(self.device),
+            topology=current_topology(self.device, self.plan,
+                                      self.plan.mesh,
+                                      int(cfg.TPU.NUM_SLICES)),
             elastic=bool(res.ELASTIC_RESUME))
 
     # -- state ---------------------------------------------------------
@@ -237,7 +318,8 @@ class Trainer:
         """Fresh state at step 0: ``params`` (a ``state_dict``), or the
         seeded init (``convert.init_params`` from ``TRAIN.SEED``) with
         ``BACKBONE.WEIGHTS`` loaded over it when set; a new optimizer and
-        the generator reseeded.  Returns the model."""
+        the generator reseeded.  Returns the model (the unwrapped module;
+        the first call wraps it in the plan's wrapper, after loading)."""
         if params is None:
             from eksml_tpu_torch.convert import init_params
 
@@ -251,26 +333,73 @@ class Trainer:
                                                 params)
                 log.info("backbone weights: loaded %d/%d arrays from %s",
                          loaded, expected, self.cfg.BACKBONE.WEIGHTS)
-        self.model.load_state_dict(params)
+        if self.train_module is None or not dist.is_initialized():
+            self.model.load_state_dict(params)
+        else:   # already wrapped (sharded under FSDP2): every rank loads
+            load_full_state(self.model, params)
+        if self.train_module is None:
+            self.train_module = self.plan.wrap(self.model)
         self.model.train()
+        # built on the wrapped parameters (DTensors under FSDP2); the
+        # decay mask comes from the names, which wrapping keeps
         self.optimizer, self.sched = make_optimizer(self.model, self.cfg)
-        self._step = make_train_step(self.model, self.optimizer, self.sched,
-                                     float(self.cfg.TRAIN.GRADIENT_CLIP))
+        self._step = make_train_step(self.train_module, self.optimizer,
+                                     self.sched,
+                                     float(self.cfg.TRAIN.GRADIENT_CLIP),
+                                     norm_group=self.plan.norm_group)
         self.generator.manual_seed(int(self.cfg.TRAIN.SEED))
         self.step = 0
         return self.model
 
     def checkpoint_state(self) -> Dict[str, Any]:
-        """The live state as a checkpoint holds it (references to the
-        live tensors: the checkpoint manager copies them)."""
-        return {"step": int(self.step), "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        """The live state as a checkpoint holds it, whole tensors under
+        the module's own names at any world size and strategy
+        (references to the live tensors where they are whole: the
+        checkpoint manager copies them).  A collective under FSDP2, which
+        gathers every shard."""
+        return {"step": int(self.step), "model": full_state_dict(self.model),
+                "optimizer": full_optimizer_state(self.optimizer),
                 "generator": self.generator.get_state()}
 
-    def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
+    def state_bytes(self):
+        """``(param_bytes, opt_bytes)`` this rank holds (its shards under
+        FSDP2), also published as the state-byte gauges."""
+        return publish_state_byte_gauges(self.model.state_dict(),
+                                         self.optimizer.state_dict()["state"])
+
+    def load_checkpoint_state(self, state: Optional[Dict[str, Any]]) -> None:
         """Make ``state`` (a :meth:`checkpoint_state` read back) the live
         state.  Checks names, shapes and dtypes first and raises
-        ``ValueError`` before anything changes on a mismatch."""
+        ``ValueError`` before anything changes on a mismatch.  Under a
+        process group a collective: ``state`` is given on the coordinator
+        (``None`` elsewhere), checked there, and broadcast into every
+        rank's tensors and shards."""
+        err = None
+        if state is not None:
+            try:
+                self._check_checkpoint_state(state)
+            except ValueError as e:
+                err = str(e)
+        if not dist.is_initialized():
+            if err is not None:
+                raise ValueError(err)
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.generator.set_state(state["generator"])
+            self.step = int(state["step"])
+            return
+        err = broadcast_object(err)
+        if err is not None:
+            raise ValueError(err)
+        load_full_state(self.model, state and state["model"], self.optimizer,
+                        state and state["optimizer"])
+        gen, step = broadcast_object(
+            None if state is None else (state["generator"],
+                                        int(state["step"])))
+        self.generator.set_state(gen)
+        self.step = step
+
+    def _check_checkpoint_state(self, state: Dict[str, Any]) -> None:
         live = self.model.state_dict()
         saved = state["model"]
         if set(saved) != set(live):
@@ -288,10 +417,6 @@ class Trainer:
         if groups != want:
             raise ValueError(f"checkpoint optimizer groups hold {groups} "
                              f"parameters, this optimizer {want}")
-        self.model.load_state_dict(saved)
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"])
-        self.step = int(state["step"])
 
     def restore_or_init(self, step: Optional[int] = None) -> int:
         """Auto-resume: fresh state (:meth:`init_state`), then the newest
@@ -300,7 +425,9 @@ class Trainer:
         (``--load``).  Returns the step the live state is at."""
         self.init_state()
         if step is not None:
-            self.load_checkpoint_state(self.ckpt.restore(step))
+            barrier()
+            self.load_checkpoint_state(self.ckpt.restore(step)
+                                       if is_coordinator() else None)
         elif self.ckpt.restore_with_fallback(
                 self.load_checkpoint_state) is None:
             return self.step
@@ -309,11 +436,17 @@ class Trainer:
 
     def _priorities(self, batch: Dict[str, torch.Tensor],
                     step: int) -> Dict[str, torch.Tensor]:
-        """The sampling priorities of the step taken from ``step``, drawn
-        from the generator."""
+        """The sampling priorities of the step taken from ``step``: those
+        of the whole global batch, drawn from the generator, of which
+        this rank takes its own rows."""
         b, h, w, _ = batch["images"].shape
         g = batch["gt_boxes"].shape[1]
-        return self.model.make_priorities((b, h, w, g), self.generator)
+        pri = self.model.make_priorities((b * self.world, h, w, g),
+                                         self.generator)
+        if self.world == 1:
+            return pri
+        return {k: v[self.rank * b:(self.rank + 1) * b]
+                for k, v in pri.items()}
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -343,13 +476,30 @@ class Trainer:
         ``TRAIN.PREFETCH_TO_DEVICE`` the next batches are built and copied
         on a worker thread; it pulls only the batches the steps take.
 
+        Under a process group every rank runs this loop over its own
+        ``batches`` (its shard); ``TRAIN.SYNC_CHECK_PERIOD`` checks that
+        the replicas agree (``replicated`` only: under ``fsdp`` the shards
+        legitimately differ and the check is disabled with a warning, as
+        in the reference), and the SIGTERM flag is agreed across ranks
+        every ``RESILIENCE.PREEMPT_SYNC_PERIOD`` steps (0: the log period).
+
         Returns the rows logged every ``TRAIN.LOG_PERIOD`` steps and at
-        the last step (also written to ``metrics.jsonl``): the losses,
-        ``learning_rate``, ``grad_norm``, ``images_per_sec`` and
-        ``step_time_ms`` (wall time per step since the previous row,
-        ending on the device's results), and ``step``."""
+        the last step (also written to ``metrics.jsonl`` by the
+        coordinator): the losses, ``learning_rate``, ``grad_norm``,
+        ``images_per_sec`` (the global batch), ``step_time_ms`` (wall
+        time per step since the previous row, ending on the device's
+        results), with ``TELEMETRY.AGGREGATE_HOSTS`` the ranks'
+        ``hosts/*`` min/max/mean and straggler, and ``step``."""
         cfg = self.cfg
         res = cfg.RESILIENCE
+        sync_every = int(cfg.TRAIN.SYNC_CHECK_PERIOD)
+        if sync_every and self.plan.strategy != "replicated":
+            log.warning("TRAIN.SYNC_CHECK_PERIOD disabled: the replica sync "
+                        "check assumes replicated params (sharding strategy "
+                        "%r)", self.plan.strategy)
+            sync_every = 0
+        aggregate = bool(cfg.TELEMETRY.ENABLED
+                         and cfg.TELEMETRY.AGGREGATE_HOSTS)
         steps_per_epoch = int(cfg.TRAIN.STEPS_PER_EPOCH)
         ckpt_every = max(1, int(cfg.TRAIN.CHECKPOINT_PERIOD)) * steps_per_epoch
         eval_every = max(1, int(cfg.TRAIN.EVAL_PERIOD)) * steps_per_epoch
@@ -436,13 +586,22 @@ class Trainer:
                     row = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()
                     dt = max(now - t_last, 1e-9)
-                    row["images_per_sec"] = (
-                        batch["images"].shape[0] * steps_since_log / dt)
+                    row["images_per_sec"] = (batch["images"].shape[0]
+                                             * self.world * steps_since_log
+                                             / dt)
                     row["step_time_ms"] = dt * 1e3 / max(1, steps_since_log)
                     if prefetcher is not None:
                         row["data/prefetch_wait_ms"] = \
                             prefetcher.wait_ms_ewma or 0.0
                     t_last, steps_since_log = now, 0
+                    if aggregate:
+                        # a collective: every rank reaches this log step
+                        agg = telemetry.aggregate_host_scalars({
+                            "step_time_ms": row["step_time_ms"],
+                            "prefetch_wait_ms":
+                                row.get("data/prefetch_wait_ms", 0.0)})
+                        telemetry.publish_aggregates(agg)
+                        row.update(agg)
                     if self.writer:
                         self.writer.write_scalars(step, row)
                     log.info("step %d/%d loss=%.4f (%.2f img/s, %.1f ms)",
@@ -450,6 +609,10 @@ class Trainer:
                              row["images_per_sec"], row["step_time_ms"])
                     row["step"] = step
                     logged.append(row)
+
+                if sync_every and step % sync_every == 0:
+                    assert_replicas_in_sync(self.model.state_dict(),
+                                            self.generator.get_state())
 
                 if ckpt_step:
                     if not sentinel.allows_save():
@@ -533,13 +696,15 @@ class Trainer:
             "SIGTERM preemption signals observed").inc()
         telemetry.event("sigterm", step=step, signal_time=preempt.signal_time)
         self.ckpt.wait()
-        if self.ckpt.latest_step() == step:
+        # the coordinator's view of the commits decides for every rank
+        if broadcast_object(self.ckpt.latest_step() == step):
             log.warning("preemption: step %d already committed; exiting "
                         "resumable (code %d)", step, preempt.exit_code)
         elif math.isfinite(float(metrics["total_loss"])):
             log.warning("preemption: forcing checkpoint at step %d", step)
             self.ckpt.save(step, self.checkpoint_state(), force=True)
             self.ckpt.wait()
+            barrier()       # no rank exits before the coordinator committed
             log.warning("preemption: checkpoint at step %d committed; "
                         "exiting resumable (code %d)", step,
                         preempt.exit_code)
@@ -558,7 +723,10 @@ class Trainer:
         telemetry.event("eval_start", step=step)
         t0 = time.perf_counter()
         ok = True
+        sharded = hasattr(self.model, "unshard")    # FSDP2: gather the root
         try:
+            if sharded:
+                self.model.unshard()
             with torch.no_grad():
                 results = self.eval_fn(self.model, step)
             if results and self.writer:
@@ -568,6 +736,8 @@ class Trainer:
             ok = False
             log.exception("eval at step %d failed", step)
         finally:
+            if sharded:
+                self.model.reshard()
             self.model.train()
             telemetry.event("eval_done", step=step, ok=ok,
                             eval_ms=round((time.perf_counter() - t0) * 1e3, 1))
@@ -617,7 +787,13 @@ def main(argv=None) -> int:
     global config with ``--config`` overrides, resuming from the newest
     verified checkpoint in the logdir.  Exits 0 when done, and with
     ``RESILIENCE.PREEMPT_EXIT_CODE`` (77) after a SIGTERM's forced
-    checkpoint."""
+    checkpoint (agreed across ranks).
+
+    Launched as N processes with the JobSet env (``COORDINATOR_ADDRESS``,
+    ``NUM_PROCESSES``, ``PROCESS_ID``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``; ``parallel/distributed.py``) it starts the
+    process group, trains on ``cuda:LOCAL_RANK`` over its shard of the
+    records, and tears the group down on exit."""
     logging.basicConfig(
         level=logging.INFO, force=True,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -625,9 +801,12 @@ def main(argv=None) -> int:
     if args.profile > 0:
         raise NotImplementedError(f"--profile waits for {PROFILE_ITEM}")
 
-    from eksml_tpu_torch.config import config, finalize_configs
+    from eksml_tpu_torch.config import config, config_from_env, finalize_configs
     from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+    from eksml_tpu_torch.parallel.distributed import (initialize_from_env,
+                                                      shutdown)
 
+    config_from_env(config)
     config.freeze(False)
     if args.logdir:
         config.TRAIN.LOGDIR = args.logdir
@@ -639,15 +818,27 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"training on COCO waits for {COCO_ITEM}; pass --synthetic")
 
-    trainer = Trainer(cfg, cfg.TRAIN.LOGDIR, device=args.device)
+    started = not dist.is_initialized()
+    initialize_from_env(cfg, device=args.device)
+    started = started and dist.is_initialized()
+    try:
+        trainer = Trainer(cfg, cfg.TRAIN.LOGDIR, device=args.device)
+    except BaseException:
+        if started:
+            shutdown()
+        raise
+    log.info("rank %d of %d on %s", trainer.rank, trainer.world,
+             trainer.device)
     try:
         records = SyntheticDataset(
             num_images=64, height=cfg.PREPROC.MAX_SIZE,
             width=cfg.PREPROC.MAX_SIZE,
             num_classes=cfg.DATA.NUM_CLASSES).records()
         loader = DetectionLoader(records, cfg, cfg.TRAIN.BATCH_SIZE_PER_CHIP,
-                                 seed=cfg.TRAIN.SEED,
-                                 with_masks=cfg.MODE_MASK)
+                                 num_hosts=trainer.world,
+                                 host_id=trainer.rank, seed=cfg.TRAIN.SEED,
+                                 with_masks=cfg.MODE_MASK,
+                                 num_slices=int(cfg.TPU.NUM_SLICES))
         total_steps = (args.total_steps if args.total_steps is not None
                        else cfg.TRAIN.STEPS_PER_EPOCH * cfg.TRAIN.MAX_EPOCHS)
         start = 0
@@ -669,6 +860,9 @@ def main(argv=None) -> int:
                 raise
             log.exception("closing the trainer failed during shutdown "
                           "(keeping the original exit status)")
+        finally:
+            if started:
+                shutdown()
     return 0
 
 

@@ -27,9 +27,20 @@ had no readable manifest is quarantined (renamed out of the digit
 namespace), while a VERIFIED step that fails to load raises — that
 points at a systematic problem (a changed model or optimizer), and
 quarantining would destroy every good checkpoint one by one.  A step
-saved on another topology (``parallel/topology.py``: another card,
-another device kind) restores after the difference is logged, unless
+saved on another topology (``parallel/topology.py``: another world size,
+strategy or card) restores after the difference is logged, unless
 ``elastic`` is off.
+
+Under a process group a step is still one file of whole tensors, with
+the same keys at any world size or strategy.  Every rank builds the
+state (under FSDP2 :func:`full_state_dict` and :func:`full_optimizer_state`
+all-gather each shard), only the coordinator writes the step and its
+manifests, and a restore is a collective: every rank drains its writes
+and passes a barrier, the coordinator alone walks, verifies, quarantines
+and reads, the chosen step (or the coordinator's error) is broadcast,
+and ``load_into`` runs on every rank with the state on the coordinator
+and ``None`` elsewhere (:func:`load_full_state` broadcasts it from
+there into each rank's live tensors and shards).
 """
 
 from __future__ import annotations
@@ -43,9 +54,12 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from eksml_tpu_torch import telemetry
 from eksml_tpu_torch.parallel import topology as topo_mod
+from eksml_tpu_torch.parallel.distributed import (barrier, broadcast_object,
+                                                  is_coordinator)
 from eksml_tpu_torch.resilience import integrity
 
 log = logging.getLogger(__name__)
@@ -92,6 +106,100 @@ def tensor_bytes(obj: Any) -> int:
     return 0
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor (an all-gather), ``t`` otherwise."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def full_state_dict(module: torch.nn.Module) -> dict:
+    """``module.state_dict()`` with whole tensors (under FSDP2 a
+    collective: every rank gathers every shard, in one order)."""
+    return {k: _whole(v) for k, v in module.state_dict().items()}
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer.state_dict()`` (parameters numbered, as PyTorch saves
+    it) with whole tensors (a collective under FSDP2)."""
+    sd = optimizer.state_dict()
+    return {"state": {i: {k: _whole(v) if isinstance(v, torch.Tensor) else v
+                          for k, v in s.items()}
+                      for i, s in sd["state"].items()},
+            "param_groups": sd["param_groups"]}
+
+
+def _local_chunk(full: torch.Tensor, dt) -> torch.Tensor:
+    """This rank's part of ``full`` under the placements of the DTensor
+    ``dt`` (FSDP2 shards split as ``torch.chunk`` does, trailing ranks
+    possibly empty)."""
+    coord = dt.device_mesh.get_coordinate()
+    for i, placement in enumerate(dt.placements):
+        if placement.is_shard():
+            chunks = torch.chunk(full, dt.device_mesh.size(i),
+                                 dim=placement.dim)
+            full = (chunks[coord[i]] if coord[i] < len(chunks)
+                    else full.narrow(placement.dim, 0, 0))
+    return full
+
+
+@torch.no_grad()
+def _broadcast_into(live: torch.Tensor, saved: Optional[torch.Tensor]
+                    ) -> None:
+    """Rank 0's ``saved`` (whole) into ``live`` on every rank: the whole
+    tensor is broadcast, each rank keeps its part."""
+    local = live.to_local() if hasattr(live, "to_local") else live
+    full = torch.empty(live.shape, dtype=live.dtype, device=local.device)
+    if saved is not None:
+        full.copy_(saved)
+    dist.broadcast(full, 0)
+    local.copy_(_local_chunk(full, live) if hasattr(live, "to_local")
+                else full)
+
+
+def load_full_state(module: torch.nn.Module, model_sd: Optional[dict],
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    optim_sd: Optional[dict] = None) -> None:
+    """Rank 0's whole ``model_sd`` and, with ``optimizer``, ``optim_sd``
+    (a :func:`full_state_dict` / :func:`full_optimizer_state` read back;
+    ignored, and may be ``None``, on the other ranks) into every rank's
+    live module and optimizer, each rank keeping its shards (optimizer
+    state tensors are shaped like their parameters, as SGD's momentum).
+    A collective; the caller checked names and shapes on rank 0 first."""
+    for name, live in module.state_dict().items():
+        _broadcast_into(live, model_sd[name] if model_sd is not None
+                        else None)
+    if optimizer is None:
+        return
+    meta = None
+    if optim_sd is not None:
+        meta = {
+            "state": {i: {k: (("tensor", tuple(v.shape))
+                              if isinstance(v, torch.Tensor) else
+                              ("value", v)) for k, v in s.items()}
+                      for i, s in optim_sd["state"].items()},
+            "groups": [{k: v for k, v in g.items() if k != "params"}
+                       for g in optim_sd["param_groups"]]}
+    meta = broadcast_object(meta)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    optimizer.state.clear()
+    for i, entries in meta["state"].items():
+        p = params[i]
+        st = {}
+        for k, (kind, value) in entries.items():
+            if kind == "tensor":
+                if value != tuple(p.shape):
+                    raise ValueError(
+                        f"optimizer state {i}.{k} is {value}, not shaped "
+                        f"like its parameter {tuple(p.shape)}")
+                st[k] = torch.empty_like(p)
+                _broadcast_into(st[k], optim_sd["state"][i][k]
+                                if optim_sd is not None else None)
+            else:
+                st[k] = value
+        optimizer.state[p] = st
+    for group, saved in zip(optimizer.param_groups, meta["groups"]):
+        group.update(saved)
+
+
 class CheckpointManager:
     """``<logdir>/checkpoints/<step>/state.pt`` with integrity manifests.
 
@@ -126,7 +234,10 @@ class CheckpointManager:
     def save(self, step: int, state: Any, force: bool = False) -> bool:
         """Snapshot ``state`` to host memory and commit it as ``step`` in
         the background.  Returns False (nothing written) when ``step`` is
-        already committed, unless ``force``, which rewrites it."""
+        already committed, unless ``force``, which rewrites it, and on
+        every rank but the coordinator, which alone writes."""
+        if not is_coordinator():
+            return False
         t0 = time.perf_counter()
         self._drain()
         if not force and step in self.all_steps():
@@ -228,8 +339,37 @@ class CheckpointManager:
         A step fails corruption-style (quarantined, walk back) when it
         fails verification, or fails to load without a readable manifest
         to prove it whole.  A step that verified intact against its
-        manifest and still fails raises: a systematic mismatch."""
+        manifest and still fails raises: a systematic mismatch.
+
+        Under a process group this is a collective (module docstring):
+        the coordinator walks and reads, ``load_into`` runs on every rank
+        (``None`` for the state off the coordinator, which is also what
+        they return), and a failure on the coordinator raises on all."""
         self.wait()
+        if not dist.is_initialized():
+            return self._walk(load_into)
+        barrier()       # every rank's view of the commits is the same
+        found, err = None, None
+        if is_coordinator():
+            try:
+                found = self._walk(None)
+            except Exception as e:  # noqa: BLE001 — re-raised on every rank
+                err = f"{type(e).__name__}: {e}"
+        step, err = broadcast_object(
+            (found[1] if found is not None else None, err))
+        if err is not None:
+            raise RuntimeError(
+                f"checkpoint restore failed on the coordinator: {err}")
+        if step is None:
+            return None
+        state = found[0] if found is not None else None
+        if load_into is not None:
+            load_into(state)
+        return state, step
+
+    def _walk(self, load_into) -> Optional[Tuple[Any, int]]:
+        """The newest step that verifies, loads and is accepted by
+        ``load_into`` (walking back), read by this process alone."""
         t0 = time.perf_counter()
         tried = set()
         while True:

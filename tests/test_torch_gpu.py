@@ -507,3 +507,72 @@ def test_prefetcher_orders_copies_before_the_step(cuda):
     assert len(got) == n
     for g, w in zip(got, want):
         assert g == pytest.approx(w, rel=1e-9)
+
+
+@pytest.mark.parametrize("strategy", ["replicated", "fsdp"])
+def test_wrapped_step_on_the_card_matches_the_unwrapped_model(cuda,
+                                                              strategy):
+    """A world-size-1 NCCL group: the model under DDP (``replicated``) or
+    FSDP2 (``fsdp``) launches the three kernels, the backward's inside
+    the wrapper's backward (2 backward, 8 copies), and its gradients
+    equal the unwrapped model's on the same batch and priorities within
+    the train_reference tolerance (1e-4 of each tensor's largest
+    magnitude: the backward's float atomics sum in any order)."""
+    import torch.distributed as dist
+
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import make_synthetic_batch
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.parallel.sharding import ShardingPlan
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + [
+        "PREPROC.MAX_SIZE=256", "PREPROC.TRAIN_SHORT_EDGE_SIZE=(256,256)",
+        f"TRAIN.SHARDING.STRATEGY={strategy}"])
+    cfg.freeze()
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in make_synthetic_batch(
+        cfg, batch_size=2, image_size=256, seed=0, gt_mask_size=28).items()
+        if k not in ("image_scale", "image_id")}
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    grads = []
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{chip_smoke._free_port()}",
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        for wrap in (False, True):
+            model = MaskRCNN.from_config(cfg)
+            model.load_state_dict(params)
+            model.to(cuda).train()
+            pri = model.make_priorities((2, 256, 256, cfg.DATA.MAX_GT_BOXES),
+                                        torch.Generator(cuda).manual_seed(0))
+            plan = ShardingPlan.from_config(cfg)
+            module = plan.wrap(model) if wrap else model
+            start = {k.name: k.launches for k in KERNELS}
+            losses = module(batch, pri)
+            before = {k.name: k.launches for k in KERNELS}
+            losses["total_loss"].backward()
+            torch.cuda.synchronize()
+            forward = {k.name: before[k.name] - start[k.name]
+                       for k in KERNELS}
+            during = {k.name: k.launches - before[k.name] for k in KERNELS}
+            assert forward == {KERNELS.fwd.name: 3, KERNELS.bwd.name: 0,
+                               KERNELS.copy.name: 0}, forward
+            assert during == {KERNELS.fwd.name: 0, KERNELS.bwd.name: 2,
+                              KERNELS.copy.name: 8}, during
+            grads.append({n: (p.grad.full_tensor() if hasattr(
+                p.grad, "full_tensor") else p.grad).detach().cpu()
+                for n, p in model.named_parameters() if p.grad is not None})
+        if wrap:
+            assert type(module).__name__ == (
+                "DistributedDataParallel" if strategy == "replicated"
+                else "FSDPMaskRCNN")
+    finally:
+        dist.destroy_process_group()
+    plain, wrapped = grads
+    assert set(plain) == set(wrapped) and len(plain) > 40
+    for n, want in plain.items():
+        err = float((wrapped[n] - want).abs().max()
+                    / want.abs().max().clamp(min=1e-12))
+        assert err <= 1e-4, (n, err)
