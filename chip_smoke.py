@@ -5,7 +5,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. build   — compile every CUDA source of the port with nvcc (all at
              once) and print the build time and nvcc's register/spill
-             summary.
+             summary; compile and load the two C++ host libraries (the
+             eval's mask ops, the loader's resize) with g++ and print
+             their g++ seconds.
 2. kernel  — hold each kernel against its plain PyTorch version on the
              card at the shapes the main paths give it and time both
              with CUDA events and torch.profiler: the ROIAlign forward
@@ -61,6 +63,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 10. train_reference — one training step on the card against the CPU at
              SMOKE widths on a 256² canvas: losses, every gradient and
              every update, and the mask targets.
+11. eval    — after the train phase, in-process on its thread with its
+             Trainer and weights: ``Trainer._run_eval`` once over 32
+             shapes val images (landscape and portrait around 640x480,
+             made here with numpy; the annotation JSON read back through
+             the port's CocoDataset, the pixels on each record's
+             ``_image``) at the default config (1344² canvas,
+             ``TEST.EVAL_BATCH_SIZE=4``): eval wall time and images/s,
+             the first batch apart from the median of the rest, batch
+             build per batch, paste + RLE per image, accumulate, the
+             ROIAlign forward launches per batch (2), the AP dict and the
+             peak memory.  AP after 6 steps from random weights is near 0.
+12. eval_reference — SMOKE widths, 256² canvas, ``PREPROC.BUCKETS=
+             ((192,256),(256,192),(256,256))``, 8 shapes images:
+             ``run_evaluation`` on the card and on the CPU from the same
+             weights (detections to the serve parity tolerances, AP to
+             1e-6), and one bucketed training step on the card from the
+             file-backed loader.
+13. coco    — where PIL imports: the shapes dataset written as JPEGs and
+             ``eksml_tpu_torch.train.main`` without ``--synthetic`` for 2
+             steps at SMOKE widths with ``TRAIN.EVAL_PERIOD=1`` (val/bbox
+             and val/segm AP in metrics.jsonl); where it does not, a line
+             saying so.  With two or more devices the ranks phase also
+             evaluates the 2-rank run's checkpoint under FSDP2 as 2 ranks
+             (``--eval-rank``) and compares rank 0's AP with one process.
 
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
@@ -88,7 +114,8 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
-          "lifecycle", "dist", "ranks", "train_reference")
+          "lifecycle", "dist", "ranks", "train_reference", "eval",
+          "eval_reference", "coco")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -142,6 +169,16 @@ def phase_build(kernels):
         for line in r.log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"[build]   {line.strip()}")
+    from eksml_tpu_torch._native import build_all
+
+    t0 = time.perf_counter()
+    libs = build_all()
+    for name, lib in libs.items():
+        reused = "" if lib.build_seconds else ", reused"
+        log(f"[build] host library {name}: {lib.lib_path} (g++ "
+            f"{lib.build_seconds:.1f}s{reused}), loaded {lib.loaded}")
+        assert lib.loaded, f"host library {name} did not load: {lib.error}"
+    log(f"[build] host libraries in {time.perf_counter() - t0:.1f}s wall")
 
 
 # ---------------------------------------------------------------------
@@ -1301,11 +1338,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def entry_ranks(nranks: int, argv, workdir: str, timeout: float):
-    """``python -m eksml_tpu_torch.train`` as ``nranks`` processes of one
-    host, formed by the JobSet env (``COORDINATOR_ADDRESS``,
-    ``NUM_PROCESSES=1``, ``LOCAL_WORLD_SIZE``, ``LOCAL_RANK``).  Returns
-    each rank's ``(exit code, output)``; kills every rank on a timeout."""
+def entry_ranks(nranks: int, argv, workdir: str, timeout: float,
+                command=("-m", "eksml_tpu_torch.train"), tag: str = "rank"):
+    """``python -m eksml_tpu_torch.train`` (or ``python <command>``) as
+    ``nranks`` processes of one host, formed by the JobSet env
+    (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES=1``, ``LOCAL_WORLD_SIZE``,
+    ``LOCAL_RANK``).  Returns each rank's ``(exit code, output)``; kills
+    every rank on a timeout."""
     port = _free_port()
     procs = []
     for r in range(nranks):
@@ -1316,11 +1355,10 @@ def entry_ranks(nranks: int, argv, workdir: str, timeout: float):
                    NUM_PROCESSES="1", LOCAL_WORLD_SIZE=str(nranks),
                    LOCAL_RANK=str(r), PYTHONPATH=os.path.dirname(
                        os.path.abspath(__file__)))
-        log_path = os.path.join(workdir, f"rank{r}.log")
+        log_path = os.path.join(workdir, f"{tag}{r}.log")
         with open(log_path, "w") as f:
             procs.append((subprocess.Popen(
-                [sys.executable, "-m", "eksml_tpu_torch.train"]
-                + list(argv), env=env, stdout=f,
+                [sys.executable, *command] + list(argv), env=env, stdout=f,
                 stderr=subprocess.STDOUT), log_path))
     deadline = time.monotonic() + timeout
     try:
@@ -1518,7 +1556,48 @@ def phase_ranks(workdir: str):
         f"{losses[1]}; checkpoints {steps}")
     assert losses[0] == losses[1] and sorted(losses[0]) == [1, 2, 3]
     assert steps == [3], steps
-    return {"wall_s": wall, "losses": losses[0]}
+
+    evaluated = ranks_eval(run, 3, train_config())
+    return {"wall_s": wall, "losses": losses[0], **evaluated}
+
+
+def ranks_eval(run: str, step: int, cfg):
+    """One eval of ``run``'s checkpoint ``step`` as two ranks under fsdp
+    (``eval_rank``), and the same eval in this process on one card:
+    rank 0's AP dict must equal this process's to 1e-6."""
+    import torch
+
+    from eksml_tpu_torch.evalcoco import run_evaluation
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.utils import CheckpointManager
+
+    t0 = time.perf_counter()
+    res = entry_ranks(2, ["--eval-rank", run], run, timeout=600,
+                      command=(os.path.abspath(__file__),), tag="eval_rank")
+    eval_wall = time.perf_counter() - t0
+    for r, (code, text) in enumerate(res):
+        assert code == 0, f"eval rank {r} exited {code}:\n{text[-4000:]}"
+    with open(os.path.join(run, "eval_ranks.json")) as f:
+        ranked = json.load(f)
+    model = MaskRCNN.from_config(cfg)
+    model.load_state_dict(CheckpointManager(run).restore(step)["model"])
+    model.to("cuda")
+    one = run_evaluation(model, cfg, shapes_records(
+        os.path.join(run, "shapes_one"), "val2017", EVAL_IMAGES,
+        RANKS_EVAL_SEED), device="cuda")
+    diff = max(abs(one[k] - ranked["results"][k]) for k in one)
+    same = set(one) == set(ranked["results"]) and diff <= 1e-6
+    log(f"[ranks] eval of step {ranked['step']} as 2 ranks under fsdp "
+        f"({eval_wall:.1f} s with process start): rank 0 bbox AP "
+        f"{ranked['results']['bbox/AP']:.6f} segm AP "
+        f"{ranked['results']['segm/AP']:.6f}; one process bbox AP "
+        f"{one['bbox/AP']:.6f} segm AP {one['segm/AP']:.6f}; equal to 1e-6: "
+        f"{same} (max |diff| {diff:.2e})")
+    del model
+    torch.cuda.empty_cache()
+    assert ranked["step"] == step and same, (one, ranked)
+    return {"eval_wall_s": eval_wall, "eval_AP_equal": same,
+            "eval_AP_max_diff": diff}
 
 
 # ---------------------------------------------------------------------
@@ -1643,6 +1722,388 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
 
 
 # ---------------------------------------------------------------------
+# phases 11-13: COCO eval and training on COCO data
+# ---------------------------------------------------------------------
+
+EVAL_IMAGES = 32
+SHAPE_CATEGORIES = [{"id": 1, "name": "box"}, {"id": 2, "name": "blob"},
+                    {"id": 3, "name": "wedge"}]
+# SMOKE widths of the eval_reference phase (canvases divisible by the
+# largest anchor stride, 64)
+REF_IMG = 256
+REF_BUCKETS = "PREPROC.BUCKETS=((192,256),(256,192),(256,256))"
+
+
+def _shape_polygon(cls: int, x, y, w, h, rng) -> list:
+    """One shape as a flat COCO polygon: a rectangle, a 16-gon ellipse or
+    a wedge (a quadrilateral: the port's even-odd fill, like the
+    reference's, inverts polygons of an odd vertex count)."""
+    if cls == 1:
+        pts = [(x, y), (x + w, y), (x + w, y + h), (x, y + h)]
+    elif cls == 2:
+        t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+        pts = list(zip(x + w / 2 + np.cos(t) * w / 2,
+                       y + h / 2 + np.sin(t) * h / 2))
+    else:
+        tip = x + w * rng.uniform(0.3, 0.7)
+        pts = [(tip - 1, y), (tip + 1, y), (x + w, y + h), (x, y + h)]
+    return [float(v) for p in pts for v in p]
+
+
+def shapes_coco(n: int, seed: int, size=(480, 640), id_base: int = 1):
+    """``n`` images of solid shapes on textured backgrounds (the classes
+    of ``tools/make_shapes_coco.py``, drawn with the port's
+    ``polygon_fill``), landscape and portrait in turn around ``size``:
+    ``(COCO annotation dict, {file_name: uint8 image})``."""
+    from eksml_tpu_torch.data.masks import polygon_fill
+
+    rng = np.random.RandomState(seed)
+    images, anns, pixels = [], [], {}
+    for i in range(n):
+        h, w = size if i % 2 == 0 else size[::-1]
+        h += int(rng.randint(-h // 16, h // 16 + 1))
+        w += int(rng.randint(-w // 16, w // 16 + 1))
+        img = (rng.randint(90, 160) + rng.randint(-25, 25, (h, w, 3))
+               ).clip(0, 255).astype(np.uint8)
+        name = f"shape_{id_base + i:05d}.jpg"
+        images.append({"id": id_base + i, "file_name": name, "height": h,
+                       "width": w})
+        for _ in range(int(rng.randint(1, 4))):
+            cls = int(rng.randint(1, 4))
+            bw = float(rng.randint(min(h, w) // 6, min(h, w) // 2))
+            bh = float(rng.randint(min(h, w) // 6, min(h, w) // 2))
+            x = float(rng.randint(0, int(w - bw)))
+            y = float(rng.randint(0, int(h - bh)))
+            poly = _shape_polygon(cls, x, y, bw, bh, rng)
+            m = polygon_fill(np.asarray(poly).reshape(-1, 2), h, w)
+            img[m.astype(bool)] = rng.randint(0, 256, 3)
+            xs, ys = poly[0::2], poly[1::2]
+            anns.append({"id": len(anns) + 1, "image_id": id_base + i,
+                         "category_id": cls, "iscrowd": 0,
+                         "bbox": [min(xs), min(ys), max(xs) - min(xs),
+                                  max(ys) - min(ys)],
+                         "area": float(m.sum()), "segmentation": [poly]})
+        pixels[name] = img
+    return ({"images": images, "annotations": anns,
+             "categories": SHAPE_CATEGORIES}, pixels)
+
+
+def shapes_records(workdir: str, split: str, n: int, seed: int,
+                   size=(480, 640)):
+    """The shapes split's annotation JSON written under ``workdir`` and
+    read back through the port's ``CocoDataset``; each record carries its
+    pixels on ``_image`` (no image file is written or decoded)."""
+    from eksml_tpu_torch.data.coco import CocoDataset
+
+    data, pixels = shapes_coco(n, seed, size)
+    os.makedirs(os.path.join(workdir, "annotations"), exist_ok=True)
+    with open(os.path.join(workdir, "annotations",
+                           f"instances_{split}.json"), "w") as f:
+        json.dump(data, f)
+    records = CocoDataset(workdir, split).records(skip_empty=False)
+    for rec in records:
+        rec["_image"] = pixels[os.path.basename(rec["path"])]
+    return records
+
+
+def phase_eval(cfg, kernels, trainer, workdir: str, seed: int):
+    """``Trainer._run_eval`` once, on the train phase's Trainer, thread
+    and weights, over ``EVAL_IMAGES`` shapes images at the default
+    config.  Returns the timings, launches, AP and peak memory."""
+    import torch
+
+    from eksml_tpu_torch.evalcoco import make_eval_fn
+
+    records = shapes_records(os.path.join(workdir, "eval"), "val2017",
+                             EVAL_IMAGES, seed + 11)
+    timings, results = {}, {}
+    inner = make_eval_fn(cfg, device="cuda", records=records,
+                         timings=timings)
+
+    def eval_fn(model, step):
+        results.update(inner(model, step))
+        return results
+
+    trainer.eval_fn = eval_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the eval path's run: every count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    trainer._run_eval(trainer.step)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    trainer.eval_fn = None
+    assert results, "the eval raised (its traceback is logged above)"
+    pred = timings["predict_s"]
+    batches = len(pred)
+    rest = sorted(pred[1:]) or pred
+    wall = timings["wall_s"]
+    per_image_post = timings["post_s"] / max(1, timings["post_images"])
+    log(f"[eval] {len(records)} images at {cfg.PREPROC.MAX_SIZE}² "
+        f"(TEST.EVAL_BATCH_SIZE={cfg.TEST.EVAL_BATCH_SIZE}, {batches} "
+        f"batches) in {wall:.2f} s = {len(records) / wall:.2f} images/s; "
+        f"first batch predict {pred[0]:.3f} s (cuDNN autotune of new "
+        f"shapes), batches 2-{batches} median {rest[len(rest) // 2] * 1e3:.1f}"
+        f" ms; batch build {np.mean(timings['build_s']) * 1e3:.1f} ms per "
+        f"batch (worker thread); paste + RLE {per_image_post * 1e3:.2f} ms "
+        f"per image ({timings['detections'] / len(records):.1f} kept "
+        f"detections per image; pool of "
+        f"{max(1, int(cfg.DATA.NUM_WORKERS or 1))}); "
+        f"accumulate {timings['accumulate_s']:.3f} s; peak torch.cuda."
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    log(f"[eval] launches {launches} = {launches[kernels.fwd.name] / batches}"
+        f" ROIAlign forward launches per batch")
+    log("[eval] AP " + json.dumps({k: round(v, 6) for k, v in
+                                   sorted(results.items())}))
+    want = {kernels.fwd.name: 2 * batches, kernels.bwd.name: 0,
+            kernels.copy.name: 0}
+    assert launches == want, (launches, want)
+    for k in ("bbox/AP", "segm/AP"):
+        assert -1.0 <= results[k] <= 1.0 and np.isfinite(results[k]), k
+    return {"wall_s": wall, "images_per_s": len(records) / wall,
+            "first_batch_s": pred[0], "median_batch_s": rest[len(rest) // 2],
+            "build_ms_per_batch": float(np.mean(timings["build_s"])) * 1e3,
+            "post_ms_per_image": per_image_post * 1e3,
+            "detections_per_image": timings["detections"] / len(records),
+            "accumulate_s": timings["accumulate_s"], "batches": batches,
+            "launches": launches, "peak_bytes": peak,
+            "bbox_AP": results["bbox/AP"], "segm_AP": results["segm/AP"]}
+
+
+def eval_reference_config():
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + [
+        f"PREPROC.MAX_SIZE={REF_IMG}",
+        f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({REF_IMG},{REF_IMG})",
+        f"PREPROC.TEST_SHORT_EDGE_SIZE={REF_IMG}", REF_BUCKETS,
+        "RPN.TEST_PRE_NMS_TOPK=256", "RPN.TEST_POST_NMS_TOPK=128",
+        "DATA.NUM_CLASSES=4", "TRAIN.BATCH_SIZE_PER_CHIP=2",
+        "TRAIN.LOG_PERIOD=1", "DATA.NUM_WORKERS=2"])
+    cfg.freeze()
+    return cfg
+
+
+def eval_card_and_cpu(cfg, records, params, card: str = "cuda"):
+    """``run_evaluation`` of one set of weights on the card and on the
+    CPU: ``{"cuda"/"cpu": (AP dict, [predict outputs per batch])}``
+    (``card``: where the "cuda" run goes; the CPU in rehearsals)."""
+    import torch
+
+    from eksml_tpu_torch.evalcoco import runner
+    from eksml_tpu_torch.models import MaskRCNN
+
+    out = {}
+    for name, device in (("cuda", card), ("cpu", "cpu")):
+        model = MaskRCNN.from_config(cfg)
+        model.load_state_dict(params)
+        model.to(device)
+        kept = []
+
+        def predict(m, images, hw, kept=kept):
+            res = {k: v.cpu() for k, v in runner.predict(m, images,
+                                                         hw).items()}
+            kept.append(res)
+            return res
+
+        out[name] = (runner.run_evaluation(model, cfg, records,
+                                             batch_size=2, device=device,
+                                             predict_fn=predict), kept)
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_eval(out, tols=(("boxes", 1e-3), ("scores", 1e-5),
+                            ("masks", 1e-4))):
+    """The card's eval against the CPU's: equal batches, classes, validity
+    (detections per image) and AP keys; the largest differences of the
+    float outputs and of the AP values."""
+    (res_g, got), (res_c, want) = out["cuda"], out["cpu"]
+    assert len(got) == len(want) and len(got) > 0
+    errs = {k: 0.0 for k, _ in tols}
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert g["valid"].sum(1).tolist() == w["valid"].sum(1).tolist()
+        assert bool((g["valid"] == w["valid"]).all())
+        assert bool((g["classes"] == w["classes"]).all())
+        for k, _ in tols:
+            errs[k] = max(errs[k], float((g[k] - w[k]).abs().max()))
+    assert set(res_g) == set(res_c) and "segm/AP" in res_g
+    errs["AP"] = max(abs(res_g[k] - res_c[k]) for k in res_c)
+    return errs
+
+
+def phase_eval_reference(kernels, seed: int, workdir: str,
+                         device: str = "cuda"):
+    """At SMOKE widths with ``PREPROC.BUCKETS``: ``run_evaluation`` on the
+    card and on the CPU from the same weights over 8 shapes images, held
+    to the serve parity tolerances (boxes 1e-3, scores 1e-5, masks 1e-4,
+    equal detections per image) and the AP to 1e-6; then one bucketed
+    training step on the card from the file-backed loader."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import DetectionLoader
+    from eksml_tpu_torch.train import Trainer
+
+    cfg = eval_reference_config()
+    records = shapes_records(os.path.join(workdir, "eval_reference"),
+                             "val2017", 8, seed + 12, size=(180, 240))
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    out = eval_card_and_cpu(cfg, records, params, card=device)
+    errs = compare_eval(out)
+    log(f"[eval_reference] {len(records)} images, {len(out['cuda'][1])} "
+        f"batches, card vs CPU in {time.perf_counter() - t0:.1f} s: max "
+        f"|diff| boxes {errs['boxes']:.2e} px, scores {errs['scores']:.2e},"
+        f" masks {errs['masks']:.2e}, AP {errs['AP']:.2e}; detections per "
+        f"image equal; card AP bbox {out['cuda'][0]['bbox/AP']:.4f} segm "
+        f"{out['cuda'][0]['segm/AP']:.4f}")
+    assert errs["boxes"] <= 1e-3 and errs["scores"] <= 1e-5, errs
+    assert errs["masks"] <= 1e-4 and errs["AP"] <= 1e-6, errs
+
+    loader = DetectionLoader(records, cfg, 2, seed=seed,
+                             with_masks=cfg.MODE_MASK)
+    batches = list(loader.batches(1))
+    trainer = Trainer(cfg, os.path.join(workdir, "eval_reference_train"),
+                      device=device)
+    trainer.init_state(params)
+    for k in kernels:
+        k.launches = 0
+    rows = trainer.fit(iter(batches), 1)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    trainer.close()
+    log(f"[eval_reference] one bucketed training step on the card, canvas "
+        f"{batches[0]['images'].shape[1:3]}: total_loss "
+        f"{rows[0]['total_loss']:.5g}, launches {launches}")
+    assert np.isfinite(rows[0]["total_loss"])
+    assert launches == {kernels.fwd.name: 3, kernels.bwd.name: 2,
+                        kernels.copy.name: 2 * len(LEVEL_STRIDES)}, launches
+    return {"errors": errs, "train_launches": launches}
+
+
+def phase_coco(kernels, seed: int, workdir: str, device: str = "cuda"):
+    """Where PIL imports: the shapes dataset as JPEGs under ``workdir``
+    and ``eksml_tpu_torch.train.main`` without ``--synthetic`` for 2 steps
+    at SMOKE widths with ``TRAIN.EVAL_PERIOD=1``; ``val/bbox/AP`` and
+    ``val/segm/AP`` must reach metrics.jsonl.  Where PIL does not import,
+    one line saying so (the JPEGs can be neither written nor decoded)."""
+    import torch
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        log(f"[coco] train.main on a COCO directory was not run: PIL does "
+            f"not import on this machine ({e}), so no JPEG can be written "
+            "or decoded here")
+        return None
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.train import main
+
+    base = os.path.join(workdir, "coco")
+    for split, n, offset in (("train2017", 8, 0), ("val2017", 4, 100)):
+        data, pixels = shapes_coco(n, seed + offset, size=(180, 240),
+                                   id_base=1 + offset)
+        os.makedirs(os.path.join(base, split))
+        for name, img in pixels.items():
+            Image.fromarray(img).save(os.path.join(base, split, name),
+                                      quality=92)
+        os.makedirs(os.path.join(base, "annotations"), exist_ok=True)
+        with open(os.path.join(base, "annotations",
+                               f"instances_{split}.json"), "w") as f:
+            json.dump(data, f)
+    run = os.path.join(workdir, "coco_run")
+    saved = config.to_dict()      # main overrides the global config
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        assert main(["--device", device, "--logdir", run, "--total-steps",
+                     "2", "--config",
+                     *SMOKE_OVERRIDES, f"PREPROC.MAX_SIZE={REF_IMG}",
+                     f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({REF_IMG},{REF_IMG})",
+                     f"PREPROC.TEST_SHORT_EDGE_SIZE={REF_IMG}",
+                     f"DATA.BASEDIR={base}", "DATA.NUM_CLASSES=4",
+                     # the lifecycle phase's in-process --synthetic run
+                     # left DATA.SYNTHETIC set on the global config
+                     "DATA.SYNTHETIC=False",
+                     "TRAIN.BATCH_SIZE_PER_CHIP=2", "TRAIN.STEPS_PER_EPOCH=1",
+                     "TRAIN.EVAL_PERIOD=1", "TRAIN.CHECKPOINT_PERIOD=2",
+                     "TRAIN.LOG_PERIOD=1", "TRAIN.SHARDING.STRATEGY="
+                     "replicated"]) == 0
+    finally:
+        config.freeze(False)
+        config.from_dict(saved)
+        config.freeze()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    evals = {r["step"]: (r["val/bbox/AP"], r["val/segm/AP"])
+             for r in rows if "val/bbox/AP" in r}
+    log(f"[coco] train.main on {base}: 2 steps with eval every epoch in "
+        f"{wall:.1f} s; val (bbox AP, segm AP) by step {evals}; launches "
+        f"{launches}")
+    assert sorted(evals) == [1, 2], (evals, launches)
+    return {"wall_s": wall, "evals": evals, "launches": launches}
+
+
+RANKS_EVAL_SEED = 11
+
+
+def eval_rank(run: str) -> int:
+    """``--eval-rank RUN``: one rank of a JobSet-formed group restores the
+    newest checkpoint under ``RUN`` into a Trainer under ``fsdp`` and
+    runs ``Trainer._run_eval`` over ``EVAL_IMAGES`` shapes images; rank
+    0 writes its AP dict to ``RUN/eval_ranks.json``."""
+    from eksml_tpu_torch.config import config, finalize_configs
+    from eksml_tpu_torch.evalcoco import make_eval_fn
+    from eksml_tpu_torch.parallel.distributed import (initialize_from_env,
+                                                      process_index,
+                                                      shutdown)
+    from eksml_tpu_torch.train import Trainer
+
+    logging.basicConfig(level=logging.INFO)
+    config.freeze(False)
+    config.update_args(["TRAIN.SHARDING.STRATEGY=fsdp", "TRAIN.NUM_CHIPS=2",
+                        f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}"])
+    cfg = finalize_configs(is_training=True)
+    initialize_from_env(cfg, device="cuda")
+    try:
+        records = shapes_records(
+            os.path.join(run, f"shapes{process_index()}"), "val2017",
+            EVAL_IMAGES, RANKS_EVAL_SEED)
+        results = {}
+        inner = make_eval_fn(cfg, device="cuda", records=records)
+
+        def eval_fn(model, step):
+            results.update(inner(model, step))
+            return results
+
+        trainer = Trainer(cfg, run, device="cuda", eval_fn=eval_fn)
+        step = trainer.restore_or_init()
+        t0 = time.perf_counter()
+        trainer._run_eval(step)
+        log(f"[eval-rank {process_index()}] eval of step {step} in "
+            f"{time.perf_counter() - t0:.1f} s: {len(results)} results")
+        if process_index() == 0:
+            assert results, "the eval raised on rank 0"
+            with open(os.path.join(run, "eval_ranks.json"), "w") as f:
+                json.dump({"step": step, "results": results}, f)
+        trainer.close()
+    finally:
+        shutdown()
+    return 0
+
+
+# ---------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1650,6 +2111,8 @@ def main(argv=None) -> int:
     p.add_argument("--phases", default=",".join(PHASES),
                    help=f"comma list out of {PHASES} (default: all)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval-rank", default=None, metavar="RUN",
+                   help="internal: one rank of the ranks phase's eval")
     args = p.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
     unknown = set(phases) - set(PHASES)
@@ -1662,6 +2125,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
+    if args.eval_rank:
+        return eval_rank(args.eval_rank)
     from eksml_tpu_torch.ops.roi_align import KERNELS
 
     log(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -1676,7 +2141,7 @@ def main(argv=None) -> int:
     # resumes the train phase's run
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     engine = serve = train = life = dist_out = None
-    ranks = None
+    ranks = evaluated = eval_ref = coco = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
@@ -1684,7 +2149,7 @@ def main(argv=None) -> int:
             phase_reference(engine.model, args.seed)
         if "profile" in phases:
             phase_profile(engine, args.seed)
-        if {"train", "lifecycle", "dist"} & set(phases):
+        if {"train", "lifecycle", "dist", "eval"} & set(phases):
             cfg = train_config()
             trainer, batches, train = phase_train(
                 cfg, KERNELS, args.seed, os.path.join(workdir, "train"),
@@ -1698,6 +2163,9 @@ def main(argv=None) -> int:
                     f"batch {BATCH}", lambda: trainer.fit(
                         iter([next(batches)]), TRAIN_STEPS + 2,
                         start_step=TRAIN_STEPS))
+            if "eval" in phases:
+                evaluated = phase_eval(cfg, KERNELS, trainer, workdir,
+                                       args.seed)
             if "lifecycle" in phases:
                 life = phase_lifecycle(cfg, KERNELS, trainer, batches,
                                        engine, serve, workdir)
@@ -1712,6 +2180,10 @@ def main(argv=None) -> int:
             ranks = phase_ranks(workdir)
         if "train_reference" in phases:
             phase_train_reference(args.seed)
+        if "eval_reference" in phases:
+            eval_ref = phase_eval_reference(KERNELS, args.seed, workdir)
+        if "coco" in phases:
+            coco = phase_coco(KERNELS, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s")
@@ -1740,7 +2212,13 @@ def main(argv=None) -> int:
                     "train": train["launches"][k.name] if train else None,
                     "lifecycle": life["launches"][k.name] if life else None,
                     "dist": (dist_out["launches"][k.name] if dist_out
-                             else None)},
+                             else None),
+                    "eval": (evaluated["launches"][k.name] if evaluated
+                             else None),
+                    "eval_reference_train_step": (
+                        eval_ref["train_launches"][k.name] if eval_ref
+                        else None),
+                    "coco": coco["launches"][k.name] if coco else None},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -1768,6 +2246,11 @@ def main(argv=None) -> int:
             + json.dumps({key: dist_out[key] for key in keys}))
     if ranks is not None:
         log(f"[ranks] on {cards}: " + json.dumps(ranks))
+    if evaluated is not None:
+        log(f"[eval] on {cards}: " + json.dumps(
+            {k: v for k, v in evaluated.items() if k != "launches"}))
+    if eval_ref is not None:
+        log(f"[eval_reference] on {cards}: " + json.dumps(eval_ref["errors"]))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

@@ -1,16 +1,23 @@
-"""Host-side data (numpy copy of parts of ``eksml_tpu/data/loader.py``):
-image resize/pad and bucket assignment for serving, and for training
-``SyntheticDataset``, an in-memory ``DetectionLoader`` and
-``make_synthetic_batch``.  For the same records, config and seed the
-loader yields byte-identical batches to the reference's.
+"""Host-side data (the port of ``eksml_tpu/data/loader.py``): image
+resize/pad and bucket assignment for serving and eval, and for training
+``SyntheticDataset``, ``DetectionLoader`` and ``make_synthetic_batch``.
+For the same records, config and seed the loader yields byte-identical
+batches to the reference's.
 
-The loader reads records that hold their decoded image (``_image``),
-pads every image to the square ``PREPROC.MAX_SIZE`` canvas and builds
-batches in the calling thread: the reference's robust file reads,
-quarantine, decode pools and aspect-ratio buckets (``PREPROC.BUCKETS``)
-are not ported yet.  :class:`DevicePrefetcher` (the reference's
-``DevicePrefetcher``) builds and copies the next batches to the device
-on a worker thread while the device runs the current step.
+``DetectionLoader`` is the reference's, file-backed path included: a
+record holds its decoded image (``_image``) or a ``path`` that the
+robust reader (``data/robust.py``) decodes with bounded retries, a
+quarantine ledger and deterministic substitutes; ``DATA.NUM_WORKERS``
+threads build the examples of a batch and ``DATA.WORKER_PROCESSES``
+``spawn`` processes decode the JPEGs (the pool heals itself, then
+degrades to in-thread decode); ``PREPROC.BUCKETS`` pads each training
+batch to the smallest canvas of a schedule shared by every rank;
+``loader.health`` is the producer's health surface.  The resize takes
+the C++ path of ``data/native.py`` when it is built.
+
+:class:`DevicePrefetcher` (the reference's ``DevicePrefetcher``) builds
+and copies the next batches to the device on a worker thread while the
+device runs the current step.
 """
 
 from __future__ import annotations
@@ -19,17 +26,37 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures.process import BrokenProcessPool
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from eksml_tpu_torch.data.masks import polygons_to_bbox_mask, rle_decode
+from eksml_tpu_torch.data.robust import (DataStarvationError, LoaderHealth,
+                                         PermanentDataError, QuarantineLedger,
+                                         QuarantineOverflowError,
+                                         RobustImageReader, ledger_path_for)
+from eksml_tpu_torch.telemetry.recorder import event
+from eksml_tpu_torch.telemetry.registry import default_registry
+from eksml_tpu_torch.telemetry.tracing import complete_span
 
 log = logging.getLogger(__name__)
 
 #: host-side batch entries the model does not take
 HOST_ONLY_KEYS = ("image_scale", "image_id")
+
+
+def _data_knobs(cfg) -> Dict:
+    """RESILIENCE.DATA values with fallbacks for callers that hand the
+    loader a config tree predating the robustness knobs — defaults are
+    the canonical ``RESILIENCE_DATA_DEFAULTS`` (one source of truth)."""
+    from eksml_tpu_torch.config import (RESILIENCE_DATA_DEFAULTS,
+                                  knobs_with_defaults)
+
+    return knobs_with_defaults(
+        getattr(getattr(cfg, "RESILIENCE", None), "DATA", None),
+        RESILIENCE_DATA_DEFAULTS)
 
 
 def quantize_uint8(image_f: np.ndarray) -> np.ndarray:
@@ -83,7 +110,15 @@ def assign_bucket(h: int, w: int, short_edge: int, max_size: int,
 
 def _bilinear_resize(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """Separable bilinear resize with half-pixel sampling: blend rows,
-    then columns."""
+    then columns.  Takes the C++ version (``data/native.py``, which
+    releases the GIL) for ``[H, W, C]`` float32 images when it is built;
+    this numpy body is the semantic reference and the fallback."""
+    from eksml_tpu_torch.data.native import resize_bilinear_native
+
+    if img.ndim == 3 and img.dtype == np.float32:
+        out = resize_bilinear_native(img, nh, nw)
+        if out is not None:
+            return out
     h, w = img.shape[:2]
     yy = (np.arange(nh) + 0.5) * h / nh - 0.5
     xx = (np.arange(nw) + 0.5) * w / nw - 0.5
@@ -130,86 +165,365 @@ class SyntheticDataset:
 
 
 class DetectionLoader:
-    """Fixed-shape training batches over (a shard of) in-memory records:
-    random short edge in ``PREPROC.TRAIN_SHORT_EDGE_SIZE``, random
-    horizontal flip, square ``PREPROC.MAX_SIZE`` canvas, GT padded to
+    """Fixed-shape training batches over (a shard of) the records: random
+    short edge in ``PREPROC.TRAIN_SHORT_EDGE_SIZE``, random horizontal
+    flip, the square ``PREPROC.MAX_SIZE`` canvas or (training with
+    ``PREPROC.BUCKETS``) the scheduled bucket's, GT padded to
     ``DATA.MAX_GT_BOXES`` (crowds last), bbox-cropped GT masks of
-    ``gt_mask_size``².
+    ``gt_mask_size``².  :meth:`batches` builds them on a producer thread
+    (``prefetch`` batches ahead).
 
     ``num_hosts`` / ``host_id``: the ranks and this rank (one per GPU);
     each reads its strided shard of ``records``.  With ``num_slices > 1``
     slice ``s`` owns ``records[s::num_slices]`` and its ranks restride
-    within it (ranks are slice-major): the same records in all, each read
-    once, but a rank's reads stay in its own slice's shard."""
+    within it (ranks are slice-major).  ``ledger_dir``: where the
+    quarantine ledger is written (None: in memory)."""
 
     def __init__(self, records: List[Dict], cfg, batch_size: int,
                  is_training: bool = True, num_hosts: int = 1,
-                 host_id: int = 0, seed: int = 0, with_masks: bool = True,
-                 gt_mask_size: int = 56, num_slices: int = 1):
+                 host_id: int = 0, seed: int = 0,
+                 with_masks: bool = True, prefetch: int = 4,
+                 gt_mask_size: int = 56,
+                 num_workers: Optional[int] = None,
+                 ledger_dir: Optional[str] = None,
+                 num_slices: int = 1):
         if not records:
             raise ValueError("empty dataset")
-        if tuple(getattr(cfg.PREPROC, "BUCKETS", ()) or ()) and is_training:
-            raise NotImplementedError(
-                "PREPROC.BUCKETS: the port's loader pads to the square "
-                "PREPROC.MAX_SIZE canvas only (ROADMAP.md Queue 1)")
         num_slices = max(1, int(num_slices))
         if num_slices > 1 and num_hosts % num_slices == 0:
-            per_slice = num_hosts // num_slices
-            shard = records[host_id // per_slice::num_slices][
-                host_id % per_slice::per_slice]
+            # per-slice data sharding: hosts are slice-major (the
+            # build_mesh device order), so slice s owns the strided
+            # shard records[s::num_slices] and its hosts restride
+            # within it — the union over all hosts is exactly the
+            # single-slice num_hosts shard set (no record read twice,
+            # none dropped), but each host's reads stay confined to
+            # its own slice's shard of the schedule
+            hosts_per_slice = num_hosts // num_slices
+            slice_id = host_id // hosts_per_slice
+            local_id = host_id % hosts_per_slice
+            self.records = records[slice_id::num_slices][
+                local_id::hosts_per_slice]
         else:
-            shard = records[host_id::num_hosts]
-        self.records = shard or records[:1]
-        for rec in self.records:
-            if rec.get("_image") is None:
-                raise NotImplementedError(
-                    f"record {rec.get('image_id')}: the port's loader takes "
-                    "records that hold their decoded image ('_image')")
+            self.records = records[host_id::num_hosts]
+        if not self.records:  # more hosts than records (tiny smoke runs)
+            self.records = records[:1]
         self.cfg = cfg
         self.batch_size = batch_size
         self.is_training = is_training
         self.rng = np.random.RandomState(seed + host_id)
         self.with_masks = with_masks
+        self.prefetch = prefetch
         self.gt_mask_size = gt_mask_size
         self.mean = np.asarray(cfg.PREPROC.PIXEL_MEAN, np.float32)
         self.std = np.asarray(cfg.PREPROC.PIXEL_STD, np.float32)
+        # uint8 batches + on-device (x-mean)/std: 4x less H2D traffic
         self.device_normalize = bool(
             getattr(cfg.PREPROC, "DEVICE_NORMALIZE", False))
         self.max_gt = cfg.DATA.MAX_GT_BOXES
+        if num_workers is None:
+            num_workers = getattr(cfg.DATA, "NUM_WORKERS", 0)
+        self.num_workers = num_workers
+        self.worker_processes = int(
+            getattr(cfg.DATA, "WORKER_PROCESSES", 0))
         self._order = np.arange(len(self.records))
         self._pos = 0
+        self._init_buckets(records, cfg, seed)
+        self._init_robustness(cfg, host_id, ledger_dir)
+
+    def _init_robustness(self, cfg, host_id: int,
+                         ledger_dir: Optional[str]) -> None:
+        """Fault-tolerant ingest (eksml_tpu/data/robust.py, knobs under
+        RESILIENCE.DATA): transient-I/O retry, per-record quarantine
+        with deterministic substitution, decode-pool self-healing, and
+        the health surface the hang watchdog reports from."""
+        knobs = _data_knobs(cfg)
+        self._reader = RobustImageReader(
+            io_retries=int(knobs["IO_RETRIES"]),
+            backoff_sec=float(knobs["IO_BACKOFF_SEC"]),
+            backoff_factor=float(knobs["IO_BACKOFF_FACTOR"]),
+            max_backoff_sec=float(knobs["IO_MAX_BACKOFF_SEC"]),
+            inject_eio_path=str(knobs["FAULT_INJECT_EIO_PATH"] or ""),
+            inject_eio_count=int(knobs["FAULT_INJECT_EIO_COUNT"]))
+        self._ledger = QuarantineLedger(
+            total_records=len(self.records),
+            max_frac=float(knobs["MAX_QUARANTINE_FRAC"]),
+            path=ledger_path_for(ledger_dir, host_id), host_id=host_id)
+        self.health = LoaderHealth(ledger=self._ledger,
+                                   reader=self._reader)
+        self._starvation_timeout = float(knobs["STARVATION_TIMEOUT_SEC"])
+        self._pool_rebuilds_left = int(knobs["MAX_POOL_REBUILDS"])
+        self._pool_lock = threading.Lock()
+        self._pool_break_pending = False
+        self._pool_degraded = False  # sticky: survives batches() calls
+        self._pool_decode_failures = 0
+        self._proc_pool = None
+        # dedicated substitution cursors (per bucket, -1 = general):
+        # substitution consumes NO RNG, so the cross-host bucket/draw
+        # schedule is untouched by a quarantine on one host
+        self._sub_lock = threading.Lock()
+        self._sub_pos: Dict[int, int] = {}
+
+    # -- aspect-ratio buckets ------------------------------------------
+
+    def _init_buckets(self, all_records: List[Dict], cfg, seed: int):
+        """Aspect-ratio bucketed padding (PREPROC.BUCKETS).
+
+        Square padding wastes ~2× compute on typical landscape COCO
+        images (a 640×480 image resizes to 1067×800 but pads to
+        1344×1344).  With buckets, each image pads only to the smallest
+        configured (H, W) canvas that holds it, and every batch is
+        bucket-homogeneous — cuDNN autotunes each canvas once and the
+        convolutions stop convolving zeros.
+
+        Multi-rank contract: every rank takes the same canvas each step
+        (the same shapes in the collectives, the same work per step), so
+        the bucket sequence is drawn from a schedule RNG seeded WITHOUT
+        host_id, with choice probabilities computed from the full
+        pre-shard record list — identical on every rank.  A rank whose
+        shard lacks records of the scheduled bucket force-fits records
+        from its general pool (rare, only under extreme shard skew).
+        """
+        buckets = tuple(getattr(cfg.PREPROC, "BUCKETS", ()) or ())
+        self.bucket_mode = bool(buckets) and self.is_training
+        if not self.bucket_mode:
+            return
+        # sort by area so assign_bucket's first fit is the tightest
+        self.buckets: List[Tuple[int, int]] = sorted(
+            (tuple(int(x) for x in b) for b in buckets),
+            key=lambda b: b[0] * b[1])
+        short_max = max(cfg.PREPROC.TRAIN_SHORT_EDGE_SIZE)
+        max_size = cfg.PREPROC.MAX_SIZE
+        # kept for quarantine substitution: a failed record's bucket is
+        # recomputed with the same draw-independent assignment
+        self._bucket_short_max = short_max
+        self._bucket_max_size = max_size
+
+        def bucket_of(rec):
+            return assign_bucket(rec["height"], rec["width"], short_max,
+                                 max_size, self.buckets)
+
+        # choice probabilities from the FULL list: every host computes
+        # the same numbers regardless of its shard
+        counts = np.zeros(len(self.buckets), np.float64)
+        for rec in all_records:
+            counts[bucket_of(rec)] += 1
+        self.bucket_freqs = counts / counts.sum()
+        self._sched_rng = np.random.RandomState(seed)  # no host_id!
+        # per-bucket index cycles over the local shard
+        self._bucket_orders = [
+            np.asarray([i for i, rec in enumerate(self.records)
+                        if bucket_of(rec) == b], np.int64)
+            for b in range(len(self.buckets))]
+        self._bucket_pos = [0] * len(self.buckets)
+
+    # -- single example -----------------------------------------------
 
     def _draw(self):
-        """Per-example random short edge and flip."""
+        """Per-example random decisions, drawn in the producer thread so
+        worker-pool decoding stays deterministic and thread-safe."""
         short_edges = self.cfg.PREPROC.TRAIN_SHORT_EDGE_SIZE \
-            if self.is_training \
-            else (self.cfg.PREPROC.TEST_SHORT_EDGE_SIZE,) * 2
+            if self.is_training else (self.cfg.PREPROC.TEST_SHORT_EDGE_SIZE,) * 2
         short = int(self.rng.randint(min(short_edges), max(short_edges) + 1))
         do_flip = self.is_training and bool(self.rng.rand() < 0.5)
         return short, do_flip
 
-    def _load_example(self, rec: Dict, short: int,
-                      do_flip: bool) -> Dict[str, np.ndarray]:
-        image = rec["_image"]
+    # -- fault-tolerant image resolution ------------------------------
+
+    def _resolve_image(self, rec: Dict, image) -> np.ndarray:
+        """Future/inline image → decoded array, with fault handling.
+
+        Any worker-side failure (process-pool decode) is re-read
+        inline so the robust reader can classify it — including a
+        BrokenProcessPool, which poisons every pending future and is
+        evidence about the POOL (worker OOM-killed), not about any
+        record's bytes: the pool is flagged for a rebuild and each
+        affected record is quarantined only if its inline re-read
+        fails with real evidence.  Raises PermanentDataError when the
+        record's bytes cannot be produced.
+        """
+        if image is not None and hasattr(image, "result"):
+            try:
+                image = image.result()  # process-pool decode future
+            except BrokenProcessPool:
+                self._note_pool_break()
+                image = None  # verify the bytes inline
+            except Exception as e:  # noqa: BLE001 — reclassified inline
+                self._note_pool_decode_failure(e)
+                image = None  # re-read inline to classify/retry
+        if image is not None:
+            return image
+        if rec.get("_image") is not None:
+            return rec["_image"]
+        t0 = time.monotonic()
+        image = self._reader.read(rec["path"])  # raises PermanentDataError
+        self.health.note_decode((time.monotonic() - t0) * 1000)
+        return image
+
+    def _materialize(self, rec: Dict, image) -> Tuple[Dict, np.ndarray]:
+        """(record, decoded image), substituting quarantined/failed
+        records.  Termination: every failure quarantines a distinct
+        record, and the ledger's circuit breaker (or an exhausted
+        substitution cycle) raises before the loop can spin."""
+        while True:
+            if self._ledger.is_quarantined(rec.get("image_id")):
+                # repeat draw of a known-bad record: substitute
+                # silently — the ledger is a census of distinct bad
+                # records, not of draws
+                rec, image = self._substitute_for(rec), None
+                continue
+            try:
+                return rec, self._resolve_image(rec, image)
+            except PermanentDataError as e:
+                self._ledger.quarantine(
+                    rec.get("image_id"), rec, e.kind, repr(e.cause),
+                    e.attempts)  # raises QuarantineOverflowError at the breaker
+                rec, image = self._substitute_for(rec), None
+
+    def _substitute_for(self, failed_rec: Dict) -> Dict:
+        """Deterministic replacement from the failed record's bucket
+        cycle (general cycle in non-bucket mode or when the shard's
+        bucket is empty).  Walks dedicated cursors and consumes no
+        RNG: batch shapes and the cross-host bucket/draw schedule are
+        unchanged by a quarantine on one host."""
+        cycles: List[Tuple[int, np.ndarray]] = []
+        if self.bucket_mode:
+            b = assign_bucket(
+                failed_rec["height"], failed_rec["width"],
+                self._bucket_short_max, self._bucket_max_size,
+                self.buckets)
+            if len(self._bucket_orders[b]):
+                cycles.append((b, self._bucket_orders[b]))
+        cycles.append((-1, self._order))
+        with self._sub_lock:
+            for key, order in cycles:
+                for _ in range(len(order)):
+                    pos = self._sub_pos.get(key, 0)
+                    self._sub_pos[key] = (pos + 1) % len(order)
+                    cand = self.records[int(order[pos])]
+                    if cand is failed_rec:
+                        continue
+                    if self._ledger.is_quarantined(cand.get("image_id")):
+                        continue
+                    return cand
+        raise QuarantineOverflowError(
+            f"no healthy record left on this host to substitute for "
+            f"image_id={failed_rec.get('image_id')}; quarantine "
+            f"ledger: {self._ledger.path or '<in-memory>'}")
+
+    # -- decode process-pool self-healing -----------------------------
+
+    def _make_proc_pool(self):
+        from concurrent.futures import ProcessPoolExecutor
+        from multiprocessing import get_context
+
+        return ProcessPoolExecutor(max_workers=self.worker_processes,
+                                   mp_context=get_context("spawn"))
+
+    def _note_pool_decode_failure(self, exc: BaseException) -> None:
+        """A pooled decode failed and will be re-read inline.  One
+        loud line for the first occurrence: a SYSTEMATICALLY failing
+        pool (spawn workers missing a codec the parent has) would
+        otherwise silently halve decode throughput for the whole run."""
+        with self._pool_lock:
+            self._pool_decode_failures += 1
+            n = self._pool_decode_failures
+        if n == 1:
+            log.warning("decode worker raised %r for a pooled read — "
+                        "re-reading inline (further worker failures "
+                        "logged at DEBUG; a failure on EVERY read "
+                        "means the pool is doing no useful work)", exc)
+        else:
+            log.debug("pooled decode failure #%d: %r", n, exc)
+
+    def _note_pool_break(self) -> None:
+        """Record a BrokenProcessPool incident (idempotent; healed at
+        the next batch boundary)."""
+        with self._pool_lock:
+            first = not self._pool_break_pending
+            self._pool_break_pending = True
+        if first:
+            log.warning(
+                "decode process pool broke (worker died — OOM kill?); "
+                "re-reading the affected batch inline and scheduling "
+                "a pool rebuild")
+
+    def _heal_proc_pool(self) -> None:
+        """Rebuild the broken decode pool (bounded by
+        RESILIENCE.DATA.MAX_POOL_REBUILDS), then degrade to in-thread
+        decode — never abort the job over a dead decode worker."""
+        with self._pool_lock:
+            if not self._pool_break_pending:
+                return
+            self._pool_break_pending = False
+            # swap AND rebuild under the same lock the consumer's
+            # teardown path takes.  The rebuild must stay inside the
+            # critical section too: released between swap and
+            # install, a concurrent teardown could complete in the
+            # gap and the heal would install a live pool on a
+            # torn-down loader with nothing left to shut it down.
+            # Constructing the executor spawns no worker processes
+            # until the first submit, so this holds the lock for
+            # microseconds, not a pool start-up.
+            old, self._proc_pool = self._proc_pool, None
+            rebuilt = False
+            if self._pool_rebuilds_left > 0:
+                self._pool_rebuilds_left -= 1
+                self._proc_pool = self._make_proc_pool()
+                rebuilt = True
+            else:
+                self._pool_degraded = True  # no resurrection later
+        if old is not None:
+            old.shutdown(wait=False, cancel_futures=True)
+        if rebuilt:
+            self.health.note_pool_rebuild()
+            default_registry().counter(
+                "eksml_data_pool_rebuilds",
+                "decode process-pool self-heals").inc()
+            event("pool_rebuild",
+                            rebuilds_left=self._pool_rebuilds_left)
+            log.warning("decode process pool rebuilt (%d rebuild(s) "
+                        "left)", self._pool_rebuilds_left)
+        else:
+            event("pool_degraded")
+            log.warning(
+                "decode pool rebuild budget exhausted (RESILIENCE."
+                "DATA.MAX_POOL_REBUILDS) — degrading to in-thread "
+                "decode")
+
+    # -- single example (continued) -----------------------------------
+
+    def _load_example(self, rec: Dict, short: int, do_flip: bool,
+                      pad_hw: Optional[Tuple[int, int]] = None,
+                      image: Optional[np.ndarray] = None
+                      ) -> Dict[str, np.ndarray]:
+        rec, image = self._materialize(rec, image)
         boxes = rec["boxes"].copy()
         classes = rec["classes"]
-        # crowd boxes are kept as ignore regions; non-crowd first so the
-        # MAX_GT truncation drops crowds first
+        # crowd boxes are kept: the model treats them as ignore regions
+        # (never positives, and they veto background sampling near them)
         crowd = rec["iscrowd"].astype(np.float32)
+        # order non-crowd first so MAX_GT truncation drops crowds first
         order = np.argsort(crowd, kind="stable")
         boxes, classes, crowd = boxes[order], classes[order], crowd[order]
         segs = [rec["segmentation"][i] for i in order]
 
-        image_f, scale, (nh, nw) = resize_and_pad(
-            image, short, self.cfg.PREPROC.MAX_SIZE)
+        max_size = self.cfg.PREPROC.MAX_SIZE
+        image_f, scale, (nh, nw) = resize_and_pad(image, short, max_size,
+                                                  pad_hw)
         boxes = boxes * scale
-        flipped = bool(do_flip)
-        if flipped:
+
+        if do_flip:
             image_f[:, :nw] = image_f[:, :nw][:, ::-1]
             x1 = nw - boxes[:, 2]
             x2 = nw - boxes[:, 0]
             boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], axis=1)
+            flipped = True
+        else:
+            flipped = False
+
         if self.device_normalize:
+            # raw bytes to the device; the model normalizes (fused into
+            # the first conv).  Quantization error < 0.5/255 of range.
             image_f = quantize_uint8(image_f)
         else:
             image_f = (image_f - self.mean) / self.std
@@ -224,6 +538,7 @@ class DetectionLoader:
         gt_classes[:n] = classes[:n]
         gt_valid[:n] = 1.0
         gt_crowd[:n] = crowd[:n]
+
         ex = {
             "images": image_f,
             "image_hw": np.asarray([nh, nw], np.float32),
@@ -240,19 +555,24 @@ class DetectionLoader:
             for i in range(n):
                 if crowd[i]:
                     continue  # crowds are never mask-training targets
+                seg = segs[i] if i < len(segs) else None
                 gt_masks[i] = self._seg_to_crop(
-                    segs[i], rec, boxes[i] / scale, flipped, nw / scale)
+                    seg, rec, boxes[i] / scale, flipped, nw / scale)
             ex["gt_masks"] = gt_masks
         return ex
 
     def _seg_to_crop(self, seg, rec, box, flipped, orig_w):
-        """Segmentation → bbox-cropped binary mask.  ``box`` is the GT box
-        at the original resolution, already mirrored when ``flipped``,
-        so the segmentation is mirrored about ``orig_w`` to match."""
+        """Segmentation → bbox-cropped fixed-size binary mask.
+
+        ``box`` is the GT box mapped back to original image resolution;
+        when ``flipped`` it is already mirrored, so the segmentation is
+        mirrored about ``orig_w`` to match (crops are scale-invariant,
+        only the flip matters).
+        """
         ms = self.gt_mask_size
         if seg is None:
             return np.ones((ms, ms), np.float32)  # synthetic: full box
-        if isinstance(seg, dict):  # RLE
+        if isinstance(seg, dict):  # RLE segmentation
             full = rle_decode(seg, rec["height"], rec["width"])
             if flipped:
                 full = full[:, ::-1]
@@ -266,6 +586,8 @@ class DetectionLoader:
             m = polygons_to_bbox_mask(seg, box, ms)
         return m.astype(np.float32)
 
+    # -- iteration ----------------------------------------------------
+
     def _next_indices(self) -> List[int]:
         out = []
         for _ in range(self.batch_size):
@@ -275,18 +597,206 @@ class DetectionLoader:
             self._pos = (self._pos + 1) % len(self._order)
         return out
 
+    def _next_bucket_batch(self) -> Tuple[Optional[Tuple[int, int]],
+                                          List[int]]:
+        """(pad_hw, indices) for one batch.  In bucket mode the bucket
+        comes from the shared schedule RNG (identical across hosts);
+        indices cycle the host-local per-bucket order, falling back to
+        the general cycle (force-fit) when the shard has none."""
+        if not self.bucket_mode:
+            return None, self._next_indices()
+        b = int(self._sched_rng.choice(len(self.buckets),
+                                       p=self.bucket_freqs))
+        order = self._bucket_orders[b]
+        if len(order) == 0:
+            return self.buckets[b], self._next_indices()
+        # When the host-local order is shorter than the batch the
+        # position wraps mid-batch (after a reshuffle), so a record can
+        # repeat within one batch — same sample-with-replacement
+        # behavior as _next_indices at epoch boundaries, just likelier
+        # for rare buckets.  Deliberate: per-batch uniqueness would
+        # skew rare-bucket sampling odds across hosts and the schedule
+        # must stay draw-count identical everywhere.
+        out = []
+        for _ in range(self.batch_size):
+            if self._bucket_pos[b] == 0:
+                self.rng.shuffle(order)
+            out.append(int(order[self._bucket_pos[b]]))
+            self._bucket_pos[b] = (self._bucket_pos[b] + 1) % len(order)
+        return self.buckets[b], out
+
     def batches(self, num_steps: Optional[int] = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
-        """Yield ``num_steps`` batches (wrapping around the records;
-        endless if None)."""
-        produced = 0
-        while num_steps is None or produced < num_steps:
-            idx = self._next_indices()
-            draws = [self._draw() for _ in idx]
-            exs = [self._load_example(self.records[i], s, f)
-                   for i, (s, f) in zip(idx, draws)]
-            yield {k: np.stack([e[k] for e in exs]) for k in exs[0]}
-            produced += 1
+        """Yield ``num_steps`` batches (wrap-around; infinite if None)
+        through a background prefetch thread."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put_or_stop(item) -> bool:
+            # stop-aware put: never blocks forever if the consumer left
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        error = []
+
+        pool = None
+        if self.num_workers and self.num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                      thread_name_prefix="decode")
+        # DATA.WORKER_PROCESSES: JPEG decode sidesteps the GIL in
+        # worker processes (spawn: no forked CUDA or thread state);
+        # everything downstream of decode stays on the thread pipeline.
+        # Held on self so a BrokenProcessPool can heal it mid-run; once
+        # the rebuild budget is spent the degradation sticks — a later
+        # batches() call must not silently resurrect the pool.
+        if (self.worker_processes > 0 and self._proc_pool is None
+                and not self._pool_degraded
+                and any(r.get("_image") is None for r in self.records)):
+            with self._pool_lock:  # same discipline as the heal path
+                self._proc_pool = self._make_proc_pool()
+
+        from eksml_tpu_torch.data.coco import load_image
+
+        def producer():
+            produced = 0
+            try:
+                while not stop.is_set() and (num_steps is None
+                                             or produced < num_steps):
+                    t_build = time.monotonic()
+                    t_span = time.perf_counter()
+                    self._heal_proc_pool()  # no-op unless a break is pending
+                    pad_hw, idx = self._next_bucket_batch()
+                    recs = [self.records[i] for i in idx]
+                    draws = [self._draw() for _ in idx]
+                    # futures pass through to _load_example so each
+                    # augment thread waits only on ITS record's decode
+                    # — decode and resize/augment overlap instead of
+                    # running as serial per-batch stages
+                    images = [None] * len(recs)
+                    if self._proc_pool is not None:
+                        try:
+                            for i, r in enumerate(recs):
+                                # known-bad records substitute in
+                                # _materialize (decoding them again in
+                                # a subprocess is pure wasted work);
+                                # injection-targeted paths stay inline
+                                # so the chaos hook fires even with a
+                                # process pool
+                                if (r.get("_image") is None
+                                        and not self._ledger
+                                        .is_quarantined(
+                                            r.get("image_id"))
+                                        and not self._reader
+                                        .matches_injection(r["path"])):
+                                    images[i] = self._proc_pool.submit(
+                                        load_image, r["path"])
+                        except BrokenProcessPool:
+                            # pool died between batches: flag for the
+                            # next heal; unsubmitted records decode
+                            # inline this batch
+                            self._note_pool_break()
+                    if pool is not None:
+                        exs = list(pool.map(
+                            self._load_example, recs,
+                            [d[0] for d in draws], [d[1] for d in draws],
+                            [pad_hw] * len(recs), images))
+                    else:
+                        exs = [self._load_example(r, s, f, pad_hw, img)
+                               for r, (s, f), img
+                               in zip(recs, draws, images)]
+                    batch = {k: np.stack([e[k] for e in exs])
+                             for k in exs[0].keys()}
+                    self.health.record_batch(
+                        (time.monotonic() - t_build) * 1000)
+                    # producer-lane span (no step: the producer runs
+                    # ahead of the step counter; seq joins batches in
+                    # the timeline).  Recorded BEFORE the queue put —
+                    # blocking on a full queue is healthy back-
+                    # pressure, not build time.
+                    complete_span("batch_build", t_span,
+                                            time.perf_counter(),
+                                            seq=produced)
+                    if not put_or_stop(batch):
+                        return
+                    produced += 1
+            except Exception as e:  # surfaced to the consumer below
+                error.append(e)
+            finally:
+                put_or_stop(None)
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="loader-producer")
+        self.health.queue_depth = q.qsize
+        self.health.producer_alive = t.is_alive
+        t.start()
+        # RESILIENCE.DATA.STARVATION_TIMEOUT_SEC: each expiry checks
+        # the producer is still alive — a producer that died without
+        # delivering its sentinel (hard kill, unraisable teardown)
+        # raises a diagnostic instead of blocking this q.get forever
+        timeout = (self._starvation_timeout
+                   if self._starvation_timeout > 0 else None)
+        try:
+            while True:
+                try:
+                    batch = q.get(timeout=timeout)
+                except queue.Empty:
+                    if t.is_alive():
+                        self.health.note_starvation_wait()
+                        log.warning(
+                            "input starvation: no batch for %.0fs "
+                            "(producer alive, queue empty) — waiting; "
+                            "pipeline: %s", self._starvation_timeout,
+                            self.health.scalars())
+                        continue
+                    # producer is dead — but it may have finished
+                    # normally in the race window between the timeout
+                    # and the aliveness check: drain before declaring
+                    # starvation
+                    try:
+                        batch = q.get_nowait()
+                    except queue.Empty:
+                        if error:
+                            raise error[0]
+                        raise DataStarvationError(
+                            "data producer thread is dead with nothing "
+                            "queued and no end-of-stream sentinel — "
+                            "the consumer would have blocked forever.\n"
+                            "data pipeline state:\n"
+                            + self.health.report()) from None
+                if batch is None:
+                    if error:
+                        raise error[0]
+                    return
+                yield batch
+        finally:
+            stop.set()
+            t.join(timeout=5.0)
+            if pool is not None:
+                pool.shutdown(wait=False)
+            with self._pool_lock:
+                # pool handle swapped under the heal path's lock: the
+                # producer can outlive the 5 s join timeout above, and
+                # an unsynchronized teardown could null the handle a
+                # concurrent heal just rebuilt.  The stale break flag
+                # dies with the pool too: left set, the next batches()
+                # call would tear down its fresh pool and silently
+                # burn the rebuild budget
+                stale, self._proc_pool = self._proc_pool, None
+                self._pool_break_pending = False
+            if stale is not None:
+                stale.shutdown(wait=False, cancel_futures=True)
+            # drop the dead pipeline's closures: keeping q.qsize /
+            # t.is_alive bound would pin up to `prefetch` full batches
+            # in memory and feed the watchdog stale state
+            self.health.queue_depth = lambda: 0
+            self.health.producer_alive = lambda: False
 
 
 def _crop_resize_binary(mask: np.ndarray, box, out_size: int) -> np.ndarray:
@@ -349,16 +859,21 @@ class DevicePrefetcher:
       (None: until it ends); :meth:`extend` raises it.  ``fit`` pulls
       exactly the batches its steps take, so a caller's iterator loses
       none between two ``fit`` calls.
-    - Errors of the iterator or the copy re-raise in :meth:`__next__`.
+    - Errors of the iterator or the copy re-raise in :meth:`__next__`
+      (the loader's ``DataStarvationError``/``QuarantineOverflowError``
+      too); a worker that died without its end-of-stream sentinel raises
+      ``DataStarvationError`` instead of blocking forever.
     - ``wait_ms_last`` / ``wait_ms_ewma``: how long the consumer blocked
-      per batch (the ``data/prefetch_wait_ms`` metric).
+      per batch (the ``data/prefetch_wait_ms`` metric); ``health`` (the
+      loader's ``LoaderHealth``) receives the same samples.
     """
 
     _DONE = object()
 
     def __init__(self, batches: Iterator[Dict[str, np.ndarray]], device,
-                 limit: Optional[int] = None):
+                 limit: Optional[int] = None, health=None):
         self.device = torch.device(device)
+        self._health = health
         # double buffering: one batch queued, one being copied
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._stop = threading.Event()
@@ -445,7 +960,7 @@ class DevicePrefetcher:
             except queue.Empty:
                 if self._thread.is_alive():
                     continue  # genuinely slow producer: keep waiting
-                raise RuntimeError(
+                raise DataStarvationError(
                     "device-prefetch thread is dead with nothing queued "
                     "and no end-of-stream sentinel") from None
         wait_ms = (time.monotonic() - t0) * 1000.0
@@ -464,6 +979,8 @@ class DevicePrefetcher:
         self.wait_ms_ewma = (wait_ms if self.wait_ms_ewma is None
                              else 0.8 * self.wait_ms_ewma + 0.2 * wait_ms)
         self.batches_delivered += 1
+        if self._health is not None:
+            self._health.note_prefetch_wait(wait_ms)
         return out
 
     def close(self) -> None:

@@ -1,6 +1,7 @@
 """Mask utilities (numpy copy of ``eksml_tpu/data/masks.py``): polygon
 rasterization and RLE decoding for the training loader's GT crops,
-``paste_mask`` and ``rle_encode`` for serving."""
+``paste_mask``, ``rle_encode`` (the C++ path of ``evalcoco/native.py``
+when built) and ``compress_counts`` for serving and the evaluator."""
 
 from __future__ import annotations
 
@@ -90,8 +91,14 @@ def _uncompress_counts(s: bytes) -> List[int]:
 
 def rle_encode(mask: np.ndarray) -> Dict:
     """Binary ``[h, w]`` mask → uncompressed COCO RLE (column-major run
-    lengths, starting with a run of zeros)."""
+    lengths, starting with a run of zeros).  The C++ path when built:
+    the eval pastes and encodes one mask per detection."""
     h, w = mask.shape
+    from eksml_tpu_torch.evalcoco.native import rle_encode_native
+
+    counts = rle_encode_native(mask)
+    if counts is not None:
+        return {"size": [h, w], "counts": counts}
     flat = np.asfortranarray(mask.astype(np.uint8)).T.reshape(-1)
     diffs = np.nonzero(np.diff(flat))[0] + 1
     bounds = np.concatenate([[0], diffs, [flat.size]])
@@ -99,6 +106,24 @@ def rle_encode(mask: np.ndarray) -> Dict:
     if flat.size and flat[0] == 1:
         counts = [0] + counts
     return {"size": [h, w], "counts": counts}
+
+
+def compress_counts(counts: Sequence[int]) -> str:
+    """Run-length list → pycocotools' modified-LEB128 string (the format
+    COCO result files use for mask predictions)."""
+    out = bytearray()
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not (x == -1 if (c & 0x10) else x == 0)
+            if more:
+                c |= 0x20
+            out.append(c + 48)
+    return out.decode()
 
 
 def paste_mask(mask28: np.ndarray, box_xyxy: Sequence[float],

@@ -242,7 +242,12 @@ class InferenceEngine:
 
     def warmup(self) -> int:
         """One forward at every bucket × batch rung; returns the count of
-        warmed shapes.  ``/healthz`` turns 200 only after this."""
+        warmed shapes.  ``/healthz`` turns 200 only after this.  The C++
+        host libraries (the request path's resize and RLE) are built and
+        loaded here too, not by the first request."""
+        from eksml_tpu_torch._native import build_all
+
+        build_all()
         for b, (bh, bw) in enumerate(self.buckets):
             for r in self.rungs:
                 t0 = time.perf_counter()

@@ -13,10 +13,12 @@ momentum trace (``t = g + m·t``, update ``-lr·t``) equals
 parameter groups is the chain; the learning rate is set from the
 schedule before each update.
 
-``Trainer`` checkpoints, auto-resumes, rolls back a divergence and exits
-resumable on SIGTERM; ``python -m eksml_tpu_torch.train --synthetic``
-runs it (see :func:`main`).  The knobs it does not read yet are listed
-in its docstring.
+``Trainer`` checkpoints, auto-resumes, rolls back a divergence, exits
+resumable on SIGTERM and evaluates COCO AP every ``TRAIN.EVAL_PERIOD``
+epochs; ``python -m eksml_tpu_torch.train`` runs it on a staged COCO
+directory or, with ``--synthetic``, on generated data (see
+:func:`main`).  The knobs it does not read yet are listed in its
+docstring.
 
 Across GPUs (one process each, ``parallel/distributed.py``) the model
 trains under the sharding plan's wrapper (``parallel/sharding.py``:
@@ -67,7 +69,6 @@ log = logging.getLogger("eksml_tpu_torch.train")
 
 #: where the options this slice leaves out are planned (ROADMAP.md)
 PROFILE_ITEM = "ROADMAP.md Queue 1, item 7 (observability)"
-COCO_ITEM = "ROADMAP.md Queue 1, item 5 (eval and the COCO data)"
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -455,7 +456,8 @@ class Trainer:
     # -- the loop ------------------------------------------------------
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
-            total_steps: int, start_step: int = 0) -> List[Dict[str, float]]:
+            total_steps: int, start_step: int = 0,
+            data_health=None) -> List[Dict[str, float]]:
         """Train up to ``total_steps`` over the host ``batches``.
 
         With live state (:meth:`init_state`, a previous ``fit``) the run
@@ -470,11 +472,18 @@ class Trainer:
         ``RESILIENCE.NAN_CHECK_PERIOD`` steps (0: at log steps) and rolls
         back to the last good checkpoint without rewinding the data;
         ``eval_fn(model, step)`` every ``TRAIN.EVAL_PERIOD`` epochs and at
-        the last step; SIGTERM forces a checkpoint and raises
-        :class:`PreemptedError` (exit code ``RESILIENCE.PREEMPT_EXIT_CODE``);
-        the hang watchdog beats at each phase.  With
+        the last step (:meth:`_run_eval`); SIGTERM forces a checkpoint and
+        raises :class:`PreemptedError` (exit code
+        ``RESILIENCE.PREEMPT_EXIT_CODE``); the hang watchdog beats at each
+        phase.  With
         ``TRAIN.PREFETCH_TO_DEVICE`` the next batches are built and copied
         on a worker thread; it pulls only the batches the steps take.
+
+        ``data_health``: the loader's ``LoaderHealth`` (``data/robust.py``).
+        Its scalars (queue depth, quarantine census, batch-build time)
+        join every logged row as ``data/*``, its gauges are registered,
+        and its report joins the watchdog's hang dump, so input
+        starvation reads as a stalled data pipeline, not a generic hang.
 
         Under a process group every rank runs this loop over its own
         ``batches`` (its shard); ``TRAIN.SYNC_CHECK_PERIOD`` checks that
@@ -488,8 +497,8 @@ class Trainer:
         coordinator): the losses, ``learning_rate``, ``grad_norm``,
         ``images_per_sec`` (the global batch), ``step_time_ms`` (wall
         time per step since the previous row, ending on the device's
-        results), with ``TELEMETRY.AGGREGATE_HOSTS`` the ranks'
-        ``hosts/*`` min/max/mean and straggler, and ``step``."""
+        results), ``data/*`` (above), with ``TELEMETRY.AGGREGATE_HOSTS``
+        the ranks' ``hosts/*`` min/max/mean and straggler, and ``step``."""
         cfg = self.cfg
         res = cfg.RESILIENCE
         sync_every = int(cfg.TRAIN.SYNC_CHECK_PERIOD)
@@ -512,9 +521,14 @@ class Trainer:
             watchdog = HangWatchdog(
                 res.WATCHDOG_TIMEOUT_SEC, report_dir=self.logdir,
                 first_beat_factor=res.WATCHDOG_COMPILE_FACTOR).start()
+            if data_health is not None:
+                watchdog.add_report_provider("data pipeline",
+                                             data_health.report)
             if self.recorder is not None:
                 watchdog.add_report_provider("flight recorder",
                                              self.recorder.report)
+        if data_health is not None:
+            data_health.register_gauges(telemetry.default_registry())
         sentinel = DivergenceSentinel(patience=res.NAN_PATIENCE,
                                       max_rollbacks=res.MAX_ROLLBACKS)
         nan_injected = False
@@ -524,7 +538,8 @@ class Trainer:
         if cfg.TRAIN.PREFETCH_TO_DEVICE:
             prefetcher = DevicePrefetcher(
                 batches, self.device,
-                limit=max(0, total_steps - (step or start_step)))
+                limit=max(0, total_steps - (step or start_step)),
+                health=data_health)
             source = prefetcher
         logged: List[Dict[str, float]] = []
         t_last, steps_since_log = time.perf_counter(), 0
@@ -590,16 +605,19 @@ class Trainer:
                                              * self.world * steps_since_log
                                              / dt)
                     row["step_time_ms"] = dt * 1e3 / max(1, steps_since_log)
+                    if data_health is not None:
+                        row.update({f"data/{k}": float(v) for k, v
+                                    in data_health.scalars().items()})
                     if prefetcher is not None:
                         row["data/prefetch_wait_ms"] = \
                             prefetcher.wait_ms_ewma or 0.0
                     t_last, steps_since_log = now, 0
                     if aggregate:
                         # a collective: every rank reaches this log step
-                        agg = telemetry.aggregate_host_scalars({
-                            "step_time_ms": row["step_time_ms"],
-                            "prefetch_wait_ms":
-                                row.get("data/prefetch_wait_ms", 0.0)})
+                        hv = {k: row.get(f"data/{k}", 0.0)
+                              for k in telemetry.HOST_AGG_KEYS}
+                        hv["step_time_ms"] = row["step_time_ms"]
+                        agg = telemetry.aggregate_host_scalars(hv)
                         telemetry.publish_aggregates(agg)
                         row.update(agg)
                     if self.writer:
@@ -719,16 +737,32 @@ class Trainer:
                         exit_code=preempt.exit_code)
         raise preempt.preempted(step)
 
+    def eval_model(self) -> torch.nn.Module:
+        """The module the eval predicts with: the inner module under DDP
+        and plain training; under FSDP2 a local, unsharded replica built
+        from the full state (the gather checkpoints use, a collective),
+        so no FSDP hook fires inside the predict loop and the ranks'
+        eval batch counts are free to differ (the reference localizes
+        its params the same way, ``eksml_tpu/evalcoco/runner.py``)."""
+        if not hasattr(self.model, "unshard"):
+            return self.model
+        replica = MaskRCNN.from_config(self.cfg).to(self.device)
+        replica.load_state_dict(full_state_dict(self.model))
+        return replica
+
     def _run_eval(self, step: int) -> None:
+        """``eval_fn(model, step)`` on :meth:`eval_model`, its results
+        written as ``val/*`` on rank 0.  A failed eval is logged and never
+        stops training; ``eval_fn`` (``evalcoco.run_evaluation``) enters
+        its one gather on every rank, the error path included."""
         telemetry.event("eval_start", step=step)
         t0 = time.perf_counter()
         ok = True
-        sharded = hasattr(self.model, "unshard")    # FSDP2: gather the root
         try:
-            if sharded:
-                self.model.unshard()
+            model = self.eval_model()
             with torch.no_grad():
-                results = self.eval_fn(self.model, step)
+                results = self.eval_fn(model, step)
+            del model
             if results and self.writer:
                 self.writer.write_scalars(
                     step, {f"val/{k}": v for k, v in results.items()})
@@ -736,8 +770,6 @@ class Trainer:
             ok = False
             log.exception("eval at step %d failed", step)
         finally:
-            if sharded:
-                self.model.reshard()
             self.model.train()
             telemetry.event("eval_done", step=step, ok=ok,
                             eval_ms=round((time.perf_counter() - t0) * 1e3, 1))
@@ -771,7 +803,9 @@ def parse_args(argv=None):
                    help="restore exactly this checkpoint step (default: "
                         "the newest verified one)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated data (no COCO on disk)")
+                   help="train on generated data (default: the COCO "
+                        "splits DATA.TRAIN under DATA.BASEDIR, with "
+                        "periodic eval on DATA.VAL)")
     p.add_argument("--total-steps", type=int, default=None,
                    help="steps to train to (default: TRAIN.STEPS_PER_EPOCH "
                         "x TRAIN.MAX_EPOCHS)")
@@ -785,7 +819,15 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     """``python -m eksml_tpu_torch.train``: train on ``--device`` from the
     global config with ``--config`` overrides, resuming from the newest
-    verified checkpoint in the logdir.  Exits 0 when done, and with
+    verified checkpoint in the logdir.
+
+    Without ``--synthetic`` it reads the splits ``DATA.TRAIN`` under
+    ``DATA.BASEDIR`` through ``CocoDataset`` (preflight by
+    ``RESILIENCE.DATA.VALIDATE``), trains on the file-backed loader
+    (quarantine ledger under the logdir, its health in the logged rows)
+    and evaluates box and mask AP on ``DATA.VAL`` every
+    ``TRAIN.EVAL_PERIOD`` epochs and at the last step (``val/*`` in
+    ``metrics.jsonl``).  Exits 0 when done, and with
     ``RESILIENCE.PREEMPT_EXIT_CODE`` (77) after a SIGTERM's forced
     checkpoint (agreed across ranks).
 
@@ -802,6 +844,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"--profile waits for {PROFILE_ITEM}")
 
     from eksml_tpu_torch.config import config, config_from_env, finalize_configs
+    from eksml_tpu_torch.data.coco import CocoDataset
     from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
     from eksml_tpu_torch.parallel.distributed import (initialize_from_env,
                                                       shutdown)
@@ -814,15 +857,20 @@ def main(argv=None) -> int:
         config.DATA.SYNTHETIC = True
     config.update_args(args.config)
     cfg = finalize_configs(is_training=True)
-    if not cfg.DATA.SYNTHETIC:
-        raise NotImplementedError(
-            f"training on COCO waits for {COCO_ITEM}; pass --synthetic")
 
     started = not dist.is_initialized()
     initialize_from_env(cfg, device=args.device)
     started = started and dist.is_initialized()
     try:
-        trainer = Trainer(cfg, cfg.TRAIN.LOGDIR, device=args.device)
+        eval_fn = None
+        if not cfg.DATA.SYNTHETIC:
+            from eksml_tpu_torch._native import build_all
+            from eksml_tpu_torch.evalcoco import make_eval_fn
+
+            build_all()     # a collective: local rank 0 compiles
+            eval_fn = make_eval_fn(cfg, device=args.device)
+        trainer = Trainer(cfg, cfg.TRAIN.LOGDIR, device=args.device,
+                          eval_fn=eval_fn)
     except BaseException:
         if started:
             shutdown()
@@ -830,21 +878,34 @@ def main(argv=None) -> int:
     log.info("rank %d of %d on %s", trainer.rank, trainer.world,
              trainer.device)
     try:
-        records = SyntheticDataset(
-            num_images=64, height=cfg.PREPROC.MAX_SIZE,
-            width=cfg.PREPROC.MAX_SIZE,
-            num_classes=cfg.DATA.NUM_CLASSES).records()
+        # inside the try: a strict preflight or a resumed ledger above the
+        # breaker raises, and the trainer must still be closed
+        if cfg.DATA.SYNTHETIC:
+            records = SyntheticDataset(
+                num_images=64, height=cfg.PREPROC.MAX_SIZE,
+                width=cfg.PREPROC.MAX_SIZE,
+                num_classes=cfg.DATA.NUM_CLASSES).records()
+        else:
+            records = []
+            for split in cfg.DATA.TRAIN:
+                records += CocoDataset(
+                    cfg.DATA.BASEDIR, split,
+                    validate=cfg.RESILIENCE.DATA.VALIDATE,
+                    validate_sample=cfg.RESILIENCE.DATA.VALIDATE_SAMPLE,
+                ).records()
         loader = DetectionLoader(records, cfg, cfg.TRAIN.BATCH_SIZE_PER_CHIP,
                                  num_hosts=trainer.world,
                                  host_id=trainer.rank, seed=cfg.TRAIN.SEED,
                                  with_masks=cfg.MODE_MASK,
+                                 ledger_dir=cfg.TRAIN.LOGDIR,
                                  num_slices=int(cfg.TPU.NUM_SLICES))
         total_steps = (args.total_steps if args.total_steps is not None
                        else cfg.TRAIN.STEPS_PER_EPOCH * cfg.TRAIN.MAX_EPOCHS)
         start = 0
         if args.load is not None:
             start = trainer.restore_or_init(args.load)
-        trainer.fit(loader.batches(None), total_steps, start_step=start)
+        trainer.fit(loader.batches(None), total_steps, start_step=start,
+                    data_health=loader.health)
     except PreemptedError as e:
         log.warning("preempted at step %d: exiting with resumable code %d "
                     "(a relaunch auto-resumes)", e.step, e.exit_code)

@@ -408,7 +408,8 @@ def test_backbone_npz_matches_the_reference(jax_run, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--synthetic", "--profile", "2"], "item 7"),
-    ([], "item 5"),
+    (["--synthetic", "--config", "TRAIN.SHARDING.STRATEGY=tensor",
+      "TRAIN.SHARDING.MODEL_AXIS_SIZE=1"], "item 4"),
 ])
 def test_entry_point_options_that_wait(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -576,3 +576,80 @@ def test_wrapped_step_on_the_card_matches_the_unwrapped_model(cuda,
         err = float((wrapped[n] - want).abs().max()
                     / want.abs().max().clamp(min=1e-12))
         assert err <= 1e-4, (n, err)
+
+
+# ---------------------------------------------------------------------
+# COCO eval on the card
+# ---------------------------------------------------------------------
+
+
+def test_both_host_libraries_load(cuda):
+    from eksml_tpu_torch._native import build_all
+
+    libs = build_all()
+    assert sorted(libs) == ["imageops", "maskops"]
+    for lib in libs.values():
+        assert lib.loaded, lib.error
+
+
+def test_run_evaluation_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``run_evaluation`` at SMOKE widths with ``PREPROC.BUCKETS`` (the
+    eval_reference phase's config) over 6 shapes images, from one set of
+    weights on the card and on the CPU: equal detections per image and
+    classes, boxes to 1e-3 px, scores to 1e-5, masks to 1e-4, AP to
+    1e-6."""
+    from eksml_tpu_torch.convert import init_params
+
+    cfg = chip_smoke.eval_reference_config()
+    records = chip_smoke.shapes_records(str(tmp_path), "val2017", 6, 3,
+                                        size=(180, 240))
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    errs = chip_smoke.compare_eval(chip_smoke.eval_card_and_cpu(
+        cfg, records, params))
+    assert errs["boxes"] <= 1e-3 and errs["scores"] <= 1e-5, errs
+    assert errs["masks"] <= 1e-4 and errs["AP"] <= 1e-6, errs
+
+
+def test_eval_under_ddp_at_world_1_matches_the_plain_eval(cuda, tmp_path):
+    """``Trainer._run_eval`` under DDP in a world-size-1 NCCL group (the
+    detections gathered through CUDA buffers) gives the AP of
+    ``run_evaluation`` on the plain model without a group."""
+    import torch.distributed as dist
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.evalcoco import make_eval_fn, run_evaluation
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.train import Trainer
+
+    cfg = chip_smoke.eval_reference_config()
+    records = chip_smoke.shapes_records(str(tmp_path), "val2017", 4, 5,
+                                        size=(180, 240))
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    model = MaskRCNN.from_config(cfg)
+    model.load_state_dict(params)
+    plain = run_evaluation(model.to(cuda), cfg, records, device="cuda")
+    results = {}
+    inner = make_eval_fn(cfg, device="cuda", records=records)
+
+    def eval_fn(m, step):
+        results.update(inner(m, step))
+        results["_module"] = type(m).__name__
+        return {k: v for k, v in results.items() if k != "_module"}
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{chip_smoke._free_port()}",
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        trainer = Trainer(cfg, str(tmp_path / "run"), device="cuda",
+                          eval_fn=eval_fn)
+        trainer.init_state(params)
+        assert type(trainer.train_module).__name__ == \
+            "DistributedDataParallel"
+        trainer._run_eval(0)
+        trainer.close()
+    finally:
+        dist.destroy_process_group()
+    assert results.pop("_module") == "MaskRCNN"
+    assert set(results) == set(plain) and "segm/AP" in plain
+    for k, v in plain.items():
+        assert abs(results[k] - v) <= 1e-6, k

@@ -55,3 +55,19 @@ def test_the_check_catches_what_it_must():
     assert forbidden_imports(src) == ["jax.numpy", "flax", "optax",
                                       "eksml_tpu.config", "eksml_tpu",
                                       "jaxlib"]
+
+
+def test_host_library_loaders_build_the_ports_own_sources():
+    """The ctypes loaders (``data/native.py``, ``evalcoco/native.py``)
+    compile the port's own C++ copies into ``eksml_tpu_torch/_build``,
+    never the JAX package's sources or libraries."""
+    from eksml_tpu_torch import _native
+
+    libs = _native._all()
+    assert sorted(lib.name for lib in libs) == ["imageops", "maskops"]
+    port = os.path.join(REPO, "eksml_tpu_torch") + os.sep
+    for lib in libs:
+        assert lib.src.startswith(port) and os.path.isfile(lib.src)
+        assert lib.lib_path.startswith(os.path.join(port, "_build"))
+        with open(lib.src) as f:
+            assert "#include \"" not in f.read()   # no header of the reference
