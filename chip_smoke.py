@@ -115,7 +115,8 @@ import numpy as np
 
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "dist", "ranks", "train_reference", "eval",
-          "eval_reference", "coco")
+          "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
+          "variants_reference")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -138,10 +139,28 @@ MASK_TARGETS = ("mask_targets", 28, 128)
 TRAIN_STEPS = 6
 # the record of each kernel that the kernels line reports
 STEP_CALL = "one training step"
+# the same kernel's calls in one step of the bf16 training point and of
+# the cascade (batch 1: three box stages, the mask head, the targets)
+BF16_STEP_CALL = "one bf16 training step"
+CASCADE_STEP_CALL = "one cascade training step"
+CASCADE_BATCH = 1
+CASCADE_STAGES = 3
+BF16_EPS = 2.0 ** -8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(walls: dict, name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall time kept in ``walls[name]`` and
+    printed (also when it raises)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        walls[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {walls[name]:.1f} s wall")
 
 
 def gpu_name_and_limit() -> str:
@@ -419,6 +438,9 @@ def phase_kernel(kernels, seed: int):
         kernels.bwd.name: kernel_backward(kernels, feats32, rng, gen),
         kernels.copy.name: kernel_copy(kernels.copy, feats32, gen),
     }
+    for name, recs in kernel_cascade_step(
+            kernels, feats32, np.random.RandomState(seed + 3), gen).items():
+        records[name] += recs
     del feats32
     torch.cuda.empty_cache()
     return records
@@ -495,7 +517,76 @@ def kernel_forward(kernel, feats32, rng, mask_rng, cluster_rng):
     records.append(_step_record([r for r in records if r["path"] == "train"
                                  and r["dtype"] == "float32"
                                  and r["rois_set"] != "clustered"]))
+    # the bf16 training point: box and mask on bf16 features, the mask
+    # targets stay float32 (one channel)
+    records.append(_step_record(
+        [r for r in records if r["path"] == "train"
+         and r["dtype"] == "bfloat16" and r["rois_set"] == "random"]
+        + [rec], call=BF16_STEP_CALL, dtype="bfloat16"))
     return records
+
+
+def kernel_cascade_step(kernels, feats32, rng, gen):
+    """Each kernel's calls in one Cascade R-CNN training step at the
+    cascade phase's batch (1), float32, each held to its plain version
+    and timed: the forward's three box stages (three seeded ROI sets of
+    ``FRCNN.BATCH_PER_IM``, as the refined boxes differ per stage), the
+    mask head's fg prefix and the mask targets; the backward's four
+    calls; the copy held bitwise to ``clone()`` on the four batch-1 level
+    shapes, then its 16 seeds (4 backward calls x 4 levels) as one
+    sequence.  Returns {kernel name: [call records..., step record]}."""
+    import torch
+
+    dev = feats32[0].device
+    feats = tuple(f[:CASCADE_BATCH].contiguous() for f in feats32)
+    fmax = max(float(f.abs().max()) for f in feats)
+    sizes = [tuple(f.shape[1:3]) for f in feats]
+    (_, box_out, n_box), (_, mask_out, n_mask) = TRAIN_CALLS
+    calls = [(f"box stage {i + 1}", box_out, n_box)
+             for i in range(CASCADE_STAGES)] + [("mask_head", mask_out,
+                                                n_mask)]
+    fwd, bwd = [], []
+    for call, out_size, n in calls:
+        rois_np = np.stack([make_rois(rng, n) for _ in range(CASCADE_BATCH)])
+        rec, _, _ = _forward_call(kernels.fwd, "cascade", call, feats,
+                                  rois_np, LEVEL_STRIDES, out_size, fmax,
+                                  "random")
+        fwd.append(rec)
+        g = torch.randn((CASCADE_BATCH, n, out_size, out_size, CHANNELS),
+                        generator=gen, device=dev)
+        bwd.append(_backward_call(kernels.bwd, feats, rois_np,
+                                  torch.from_numpy(rois_np).to(dev), g,
+                                  call, "random", out_size, sizes))
+    call, out_size, n = MASK_TARGETS
+    masks, mrois = mask_target_inputs(rng, CASCADE_BATCH * n)
+    rec, _, _ = _forward_call(
+        kernels.fwd, "cascade", call, (torch.from_numpy(masks).to(dev),),
+        mrois, (1,), out_size, 1.0, "masks")
+    fwd.append(rec)
+    srcs = [torch.randn(f.shape, generator=gen, device=dev) for f in feats]
+    copy = kernels.copy
+    err = max(_copy_check(copy, s) for s in srcs)
+    pairs = [(s, torch.empty_like(s)) for _ in calls for s in srcs]
+    seeds = [s for s, _ in pairs]
+    turns = time_in_turns({"kernel": lambda: [copy(s) for s in seeds],
+                           "copy_": lambda: [d.copy_(s) for s, d in pairs],
+                           "clone": lambda: [s.clone() for s in seeds]},
+                          iters=10, warmup=2)
+    log(f"[kernel] {copy.name} {CASCADE_STEP_CALL} ({len(calls)} backward "
+        f"calls x {len(srcs)} levels, batch {CASCADE_BATCH}) in turns: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in turns.items()))
+    copy_rec = _record("cascade", CASCADE_STEP_CALL, torch.float32, None,
+                       None, err, turns["kernel"], turns["clone"],
+                       turns["copy_"], sum(2 * s.numel() * 4 for s in seeds),
+                       0)
+    del srcs, seeds, pairs
+    out = {kernels.fwd.name: fwd + [_step_record(fwd, CASCADE_STEP_CALL)],
+           kernels.bwd.name: bwd + [_step_record(bwd, CASCADE_STEP_CALL)],
+           kernels.copy.name: [copy_rec]}
+    for recs in out.values():
+        for r in recs:
+            r["path"] = "cascade"
+    return out
 
 
 def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
@@ -543,21 +634,23 @@ def _forward_call(kernel, path, call, feats, rois_np, strides, out_size,
     return rec, got, want
 
 
-def _step_record(records):
-    """One training step's calls of a kernel (``records``, float32),
-    summed: the times as measured call by call (device-only where every
-    call has one), the bound from the summed bytes and operations."""
+def _step_record(records, call=STEP_CALL, dtype="float32"):
+    """One training step's calls of a kernel (``records``), summed: the
+    times as measured call by call (device-only where every call has
+    one), the bound from the summed bytes and operations.  ``call`` names
+    the step (the f32 training step by default), ``dtype`` its
+    features'."""
     total = {k: sum(r[k] for r in records)
              for k in ("ms", "plain_ms", "bytes", "ops")}
-    dev = [r["device_ms"] for r in records]
+    dev = [r.get("device_ms") for r in records]
     total["device_ms"] = None if None in dev else sum(dev)
     bound_ms, bound_by = bound_of(total["bytes"], total["ops"])
-    log(f"[kernel]   {STEP_CALL} ({' + '.join(r['call'] for r in records)}"
+    log(f"[kernel]   {call} ({' + '.join(r['call'] for r in records)}"
         f"): kernel {total['ms']:.4f} ms (device-only "
         f"{_ms_text(total['device_ms'])}), plain {total['plain_ms']:.3f} ms, "
         f"bound {bound_ms * 1e3:.1f} us ({total['bytes'] / 1e6:.1f} MB, "
         f"{bound_by}), {bound_ms / total['ms'] * 100:.1f}% of bound")
-    return {"path": "train", "call": STEP_CALL, "dtype": "float32",
+    return {"path": "train", "call": call, "dtype": dtype,
             "max_abs_err": max(r["max_abs_err"] for r in records),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             **total}
@@ -630,6 +723,11 @@ def kernel_backward(kernels, feats32, rng, gen):
     records.append(_step_record([r for r in records
                                  if r["dtype"] == "float32"
                                  and r["rois_set"] == "random"]))
+    records.append(_step_record([r for r in records
+                                 if r["dtype"] == "bfloat16"
+                                 and r["rois_set"] == "random"
+                                 and r["call"] != STEP_CALL],
+                                call=BF16_STEP_CALL, dtype="bfloat16"))
     return records
 
 
@@ -702,16 +800,8 @@ def kernel_copy(kernel, feats32, gen):
     dsts = [torch.empty_like(s) for s in srcs]
     records = []
     for src, dst in zip(srcs, dsts):
-        got = kernel(src)
-        torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int32), src.view(torch.int32))
+        err = _copy_check(kernel, src)
         shape = "x".join(str(d) for d in src.shape)
-        log(f"[kernel] {kernel.name} [{shape}] float32: bitwise equal to "
-            f"clone() {'ok' if same else 'FAIL'}")
-        if not same:
-            raise AssertionError(f"{kernel.name} differs from clone() at "
-                                 f"[{shape}]")
-        del got
         turns = time_in_turns({"kernel": lambda: kernel(src),
                                "copy_": lambda: dst.copy_(src),
                                "clone": lambda: src.clone()},
@@ -722,7 +812,7 @@ def kernel_copy(kernel, feats32, gen):
             f"{k} {v:.4f} ms" for k, v in turns.items())
             + "; device-only (torch.profiler): " + ", ".join(
                 f"{k} {_ms_text(v)}" for k, v in dev_ms.items()))
-        rec = _record("train", f"[{shape}]", torch.float32, None, None, 0.0,
+        rec = _record("train", f"[{shape}]", torch.float32, None, None, err,
                       turns["kernel"], turns["clone"], turns["copy_"],
                       2 * src.numel() * 4, 0)
         rec["device_ms"] = dev_ms
@@ -738,12 +828,42 @@ def kernel_copy(kernel, feats32, gen):
     log(f"[kernel] {kernel.name} {STEP_CALL} ({backward_calls} backward "
         f"calls x {len(srcs)} levels) in turns: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in turns.items()))
+    # (under bf16 the accumulators stay float32: the same 8 seeds, so the
+    # bf16 step has no record of its own)
     records.append(_record("train", STEP_CALL, torch.float32, None, None,
-                           0.0, turns["kernel"], turns["clone"],
-                           turns["copy_"],
+                           max(r["max_abs_err"] for r in records),
+                           turns["kernel"], turns["clone"], turns["copy_"],
                            sum(2 * s.numel() * 4 for s, _ in pairs), 0))
     del srcs, dsts, pairs
     return records
+
+
+def _copy_check(kernel, src) -> float:
+    """The copy kernel on ``src`` held bitwise to ``clone()``; returns
+    the largest absolute difference (0.0, or it raises)."""
+    import torch
+
+    got = kernel(src)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), src.view(torch.int32))
+    shape = "x".join(str(d) for d in src.shape)
+    log(f"[kernel] {kernel.name} [{shape}] float32: bitwise equal to "
+        f"clone() {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{kernel.name} differs from clone() at "
+                             f"[{shape}]")
+    return float((got - src).abs().max())
+
+
+def _step_summary(recs, call):
+    """The step record ``call`` of one kernel's records, in the kernels
+    line's keys (None where the kernel phase made none)."""
+    rec = next((r for r in recs if r["call"] == call), None)
+    if rec is None:
+        return None
+    return {k: rec.get(k) for k in ("dtype", "path", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "bytes", "max_abs_err")}
 
 
 def _record(path, call, dtype, out_size, rois, err, ms, plain_ms,
@@ -786,7 +906,9 @@ def post(url: str, img: np.ndarray, **params):
         return resp.status, json.load(resp)
 
 
-def phase_serve(cfg, kernels, seed: int):
+def phase_serve(cfg, kernels, seed: int, tag: str = "serve"):
+    """The serving path at ``cfg`` (the serve phase's default, or the
+    serve_bf16 phase's bfloat16); returns the engine and the record."""
     import torch
 
     from eksml_tpu_torch import telemetry
@@ -816,7 +938,7 @@ def phase_serve(cfg, kernels, seed: int):
         with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
             health = json.load(r)
         assert health["status"] == "ok" and health["devices"] >= 1, health
-        log(f"[serve] warmup: {warmed} shape(s) "
+        log(f"[{tag}] warmup: {warmed} shape(s) "
             f"{engine.buckets} x {engine.rungs} in {warm_s:.1f}s")
 
         rng = np.random.RandomState(seed)
@@ -868,16 +990,16 @@ def phase_serve(cfg, kernels, seed: int):
         spans = {k: sorted(r[1]["timings_ms"][k] for r in results)
                  for k in ("pad", "queue_wait", "device_infer",
                            "postprocess")}
-        log(f"[serve] 8 requests in {wall:.3f}s: {len(images) / wall:.3f} "
+        log(f"[{tag}] 8 requests in {wall:.3f}s: {len(images) / wall:.3f} "
             f"images/s; latency ms min {lat[0]:.1f} median "
             f"{lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}")
-        log("[serve] per-request spans, median (max) ms: " + ", ".join(
+        log(f"[{tag}] per-request spans, median (max) ms: " + ", ".join(
             f"{k} {v[len(v) // 2]:.1f} ({v[-1]:.1f})"
             for k, v in spans.items()))
-        log(f"[serve] batches dispatched {dispatched}, batch fills "
+        log(f"[{tag}] batches dispatched {dispatched}, batch fills "
             f"{sorted(fills)}, request_path_compiles {rpc}, detections "
             f"above TEST.RESULT_SCORE_THRESH {n_valid}")
-        log(f"[serve] peak torch.cuda.max_memory_allocated: warmup "
+        log(f"[{tag}] peak torch.cuda.max_memory_allocated: warmup "
             f"{warm_peak / 2 ** 30:.2f} GiB, the 8 requests "
             f"{serve_peak / 2 ** 30:.2f} GiB; launches {launches}")
         assert rpc == 0, f"request_path_compiles = {rpc}"
@@ -906,7 +1028,8 @@ def phase_serve(cfg, kernels, seed: int):
 # ---------------------------------------------------------------------
 
 
-def phase_reference(model_gpu, seed: int, tol: float = 1e-3):
+def phase_reference(model_gpu, seed: int, tol: float = 1e-3,
+                    tag: str = "reference"):
     """Same weights on the card and on the CPU, one 256² image: the FPN
     features, the ROIAlign output for the card's proposals (kernel on the
     card, plain version on the CPU) and the box-head logits agree within
@@ -916,6 +1039,7 @@ def phase_reference(model_gpu, seed: int, tol: float = 1e-3):
     from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
 
     model_cpu = copy.deepcopy(model_gpu).cpu()
+    dev = next(model_gpu.parameters()).device
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(rng.randint(0, 256, (1, 256, 256, 3))
                          .astype(np.uint8))
@@ -926,13 +1050,13 @@ def phase_reference(model_gpu, seed: int, tol: float = 1e-3):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
 
     with torch.inference_mode():
-        fg = model_gpu._features(x.cuda())
+        fg = model_gpu._features(x.to(dev))
         fc = model_cpu._features(x)
         errs = {f"P{i + 2}": rel(a, b) for i, (a, b) in enumerate(zip(fg, fc))}
-        out = model_gpu.predict(x.cuda(), hw.cuda())
+        out = model_gpu.predict(x.to(dev), hw.to(dev))
         logits, deltas = model_gpu.rpn(fg)
         anchors = model_gpu._anchors((256, 256), fg[0].device)
-        boxes, _ = model_gpu._proposals(logits, deltas, anchors, hw.cuda(),
+        boxes, _ = model_gpu._proposals(logits, deltas, anchors, hw.to(dev),
                                         model_gpu.test_pre_nms_topk,
                                         model_gpu.test_post_nms_topk)
         strides = model_gpu.anchor_strides[:4]
@@ -948,7 +1072,7 @@ def phase_reference(model_gpu, seed: int, tol: float = 1e-3):
     assert out["masks"].shape == (1, d, 28, 28), out["masks"].shape
     assert bool(torch.isfinite(out["boxes"]).all())
     assert bool(torch.isfinite(out["masks"]).all())
-    log("[reference] card vs CPU, max|diff| / max|CPU|: "
+    log(f"[{tag}] card vs CPU, max|diff| / max|CPU|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" (tolerance {tol})")
     bad = {k: v for k, v in errs.items() if not v <= tol}
@@ -1131,6 +1255,7 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
     import torch
 
     from eksml_tpu_torch import telemetry
+    from eksml_tpu_torch.config import config
     from eksml_tpu_torch.resilience.integrity import verify_step
     from eksml_tpu_torch.serve import (MicroBatcher, ReloadManager,
                                        ServingServer)
@@ -1214,6 +1339,7 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
     argv = ["--logdir", run, "--synthetic", "--config",
             "TRAIN.STEPS_PER_EPOCH=2", "TRAIN.CHECKPOINT_PERIOD=1",
             f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.LOG_PERIOD=1"]
+    saved = config.to_dict()      # main overrides the global config
     for kern in kernels:
         kern.launches = 0
     t0 = time.perf_counter()
@@ -1227,6 +1353,9 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
         t2 = time.perf_counter()
     finally:
         logging.getLogger("eksml_tpu_torch.train").removeHandler(lines)
+        config.freeze(False)
+        config.from_dict(saved)
+        config.freeze()
     torch.cuda.synchronize()
     path_launches.append(counts())
     _per_step(kernels, path_launches[-1], 5)
@@ -1605,8 +1734,24 @@ def ranks_eval(run: str, step: int, cfg):
 # ---------------------------------------------------------------------
 
 
+def _shared_proposals(proposals, shared: list, where):
+    """``MaskRCNN._proposals`` that records its outputs into the empty
+    list ``shared`` (the first run), or returns the recorded ones on
+    ``where`` (the second)."""
+    def call(*args, **kwargs):
+        if shared:
+            return tuple(t.to(where) for t in shared)
+        out = proposals(*args, **kwargs)
+        shared.extend(t.detach().cpu() for t in out)
+        return out
+    return call
+
+
 def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
-                          update_tol: float = 1e-3):
+                          update_tol: float = 1e-3, extra=(),
+                          tag: str = "train_reference",
+                          loss_tol: float = None,
+                          share_proposals: bool = False):
     """One ``make_train_step`` at SMOKE widths on an ``img``² canvas,
     batch 2, from one set of weights, one batch and one set of
     priorities on the card and on the CPU.  The losses, ``grad_norm``
@@ -1615,7 +1760,17 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
     its largest magnitude (a float32 ulp of the parameter is up to ~1e-4
     of the update at this learning rate); the mask targets agree exactly
     except at pixels whose plain value lies within 1e-6 of 0.5.  Returns
-    the worst errors and the number of gradient tensors compared."""
+    the worst errors and the number of gradient tensors compared.
+    ``extra``: config overrides of a model variant; ``loss_tol`` (default ``tol``) holds
+    the losses and ``grad_norm``.  Under ``TRAIN.PRECISION=bfloat16``
+    each gradient and update tensor is held to twice the CPU's own
+    bf16-vs-float32 difference of that tensor on the same step, and no
+    less than ``BF16_TENSOR_FLOOR``, instead of ``tol`` and
+    ``update_tol``.  ``share_proposals``: the card steps first and the
+    CPU step takes the card's RPN proposals, so both sample the same ROIs
+    (under bf16 the two devices' logits differ by rounding, and near-ties
+    then reorder top-k and NMS: another sampled ROI set is another loss,
+    not an error)."""
     import torch
 
     from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
@@ -1632,18 +1787,22 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
     cfg.update_args(list(SMOKE_OVERRIDES) + [
         f"PREPROC.MAX_SIZE={img}",
         f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({img},{img})", "TRAIN.BASE_LR=0.1",
-        "TRAIN.WARMUP_STEPS=0", "TRAIN.BATCH_SIZE_PER_CHIP=2"])
+        "TRAIN.WARMUP_STEPS=0", "TRAIN.BATCH_SIZE_PER_CHIP=2", *extra])
     cfg.freeze()
     batch = make_synthetic_batch(cfg, batch_size=2, image_size=img,
                                  seed=seed, gt_mask_size=28)
     batch = {k: torch.from_numpy(v) for k, v in batch.items()
              if k not in ("image_scale", "image_id")}
     params = init_params(cfg, torch.Generator().manual_seed(seed))
-    results = {}
-    for where in ("cpu", dev):
+    shared = []
+
+    def step(where, cfg):
         model = MaskRCNN.from_config(cfg)
         model.load_state_dict(params)
         model.to(where).train()
+        if share_proposals:
+            model._proposals = _shared_proposals(model._proposals, shared,
+                                                 where)
         pri = model.make_priorities(
             (2, img, img, cfg.DATA.MAX_GT_BOXES),
             torch.Generator().manual_seed(seed))
@@ -1652,24 +1811,59 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
         for n, p in model.named_parameters():
             if p.requires_grad:     # the raw gradient, as backward gives it
                 p.register_hook(lambda g, n=n: grads.__setitem__(
-                    n, g.detach().cpu().clone()))
+                    n, g.detach().float().cpu().clone()))
         metrics = make_train_step(
             model, opt, sched, float(cfg.TRAIN.GRADIENT_CLIP))(
             {k: v.to(where) for k, v in batch.items()},
             {k: v.to(where) for k, v in pri.items()}, 0)
-        updates = {n: (p.detach().cpu() - params[n])
+        updates = {n: (p.detach().float().cpu() - params[n])
                    for n, p in model.named_parameters()}
-        results[str(where)] = ({k: float(v) for k, v in metrics.items()},
-                               grads, updates, model)
+        return {k: float(v) for k, v in metrics.items()}, grads, updates, \
+            model
+
+    results = {str(where): step(where, cfg) for where in (
+        (dev, "cpu") if share_proposals else ("cpu", dev))}
     (lc, gc, uc, mc), (lg, gg, ug, mg) = results["cpu"], results[str(dev)]
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
 
+    def errors(g1, u1, g2, u2):
+        return ({n: rel(g1[n], g2[n]) for n in g2},
+                {n: rel(u1[n], u2[n]) for n in u2 if u2[n].abs().max() > 0})
+
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc}
     assert gc and set(gg) == set(gc), set(gg) ^ set(gc)
-    grad_err = {n: rel(gg[n], gc[n]) for n in gc}
-    upd_err = {n: rel(ug[n], uc[n]) for n in uc if uc[n].abs().max() > 0}
+    grad_err, upd_err = errors(gg, ug, gc, uc)
+    grad_tol = dict.fromkeys(grad_err, tol)
+    upd_tol = dict.fromkeys(upd_err, update_tol)
+    if cfg.TRAIN.PRECISION == "bfloat16":
+        # bf16 gradients are their own noise: the card's and the CPU's
+        # bf16 steps are two roundings of one float32 step (same weights,
+        # batch, priorities, proposals), so each tensor may differ by
+        # twice what the CPU's bf16 step moves that tensor from its
+        # float32 one
+        f32 = cfg.clone()
+        f32.freeze(False)
+        f32.TRAIN.PRECISION = "float32"
+        f32.freeze()
+        _, g32, u32, _ = step("cpu", f32)
+        noise_g, noise_u = errors(gc, uc, g32, u32)
+        grad_tol = {n: max(2 * noise_g[n], BF16_TENSOR_FLOOR)
+                    for n in grad_err}
+        upd_tol = {n: max(2 * noise_u.get(n, 0.0), BF16_TENSOR_FLOOR)
+                   for n in upd_err}
+        tol, update_tol = max(grad_tol.values()), max(upd_tol.values())
+        for what, err, tols, noise in (("gradients", grad_err, grad_tol,
+                                        noise_g),
+                                       ("updates", upd_err, upd_tol,
+                                        noise_u)):
+            worst = sorted(err, key=lambda n: err[n] / tols[n])[-4:]
+            log(f"[{tag}] {what}, card vs CPU against each tensor's "
+                "tolerance (twice the CPU's bf16-vs-float32 difference, "
+                f"at least {BF16_TENSOR_FLOOR:.3g}), the 4 nearest: "
+                + "; ".join(f"{n} {err[n]:.2e} / {tols[n]:.2e} (CPU "
+                            f"{noise.get(n, 0.0):.2e})" for n in worst))
 
     # mask targets: jittered GT boxes on random disc masks
     rng = np.random.RandomState(seed)
@@ -1701,7 +1895,10 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
         28).reshape(2, k, 28, 28)
     differ = t_cpu != t_gpu
     near = (sampled - 0.5).abs() <= 1e-6
-    log(f"[train_reference] card vs CPU, SMOKE widths, {img}², batch 2: "
+    loss_tol = tol if loss_tol is None else loss_tol
+    log(f"[{tag}] card vs CPU, SMOKE widths, {img}², batch 2"
+        f"{', ' + ' '.join(extra) if extra else ''}"
+        f"{', the CPU on the card proposals' if share_proposals else ''}: "
         "losses and grad_norm max rel "
         f"{max(loss_err.values()):.2e}; gradients max "
         f"|diff|/max|CPU| {max(grad_err.values()):.2e} over {len(gc)} "
@@ -1709,16 +1906,18 @@ def phase_train_reference(seed: int, img: int = 256, tol: float = 1e-4,
         f"{max(upd_err.values()):.2e} over {len(upd_err)} tensors; mask "
         f"targets differ at {int(differ.sum())} of {differ.numel()} pixels, "
         f"{int((differ & near).sum())} of them within 1e-6 of 0.5 "
-        f"(tolerances {tol} and {update_tol})")
-    assert max(loss_err.values()) <= tol, loss_err
-    assert max(grad_err.values()) <= tol, {
-        n: e for n, e in grad_err.items() if e > tol}
-    assert max(upd_err.values()) <= update_tol, {
-        n: e for n, e in upd_err.items() if e > update_tol}
+        f"(tolerances: losses {loss_tol}, gradients up to {tol:.3g}, "
+        f"updates up to {update_tol:.3g})")
+    assert max(loss_err.values()) <= loss_tol, loss_err
+    assert all(grad_err[n] <= grad_tol[n] for n in grad_err), {
+        n: (e, grad_tol[n]) for n, e in grad_err.items() if e > grad_tol[n]}
+    assert all(upd_err[n] <= upd_tol[n] for n in upd_err), {
+        n: (e, upd_tol[n]) for n, e in upd_err.items() if e > upd_tol[n]}
     assert not (differ & ~near).any(), "mask targets differ"
     return {"losses": max(loss_err.values()),
             "gradients": max(grad_err.values()),
-            "updates": max(upd_err.values()), "gradient_tensors": len(gc)}
+            "updates": max(upd_err.values()), "gradient_tensors": len(gc),
+            "loss_values": lc}
 
 
 # ---------------------------------------------------------------------
@@ -2030,8 +2229,7 @@ def phase_coco(kernels, seed: int, workdir: str, device: str = "cuda"):
                      f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({REF_IMG},{REF_IMG})",
                      f"PREPROC.TEST_SHORT_EDGE_SIZE={REF_IMG}",
                      f"DATA.BASEDIR={base}", "DATA.NUM_CLASSES=4",
-                     # the lifecycle phase's in-process --synthetic run
-                     # left DATA.SYNTHETIC set on the global config
+                     # COCO files whatever the global config holds
                      "DATA.SYNTHETIC=False",
                      "TRAIN.BATCH_SIZE_PER_CHIP=2", "TRAIN.STEPS_PER_EPOCH=1",
                      "TRAIN.EVAL_PERIOD=1", "TRAIN.CHECKPOINT_PERIOD=2",
@@ -2053,6 +2251,351 @@ def phase_coco(kernels, seed: int, workdir: str, device: str = "cuda"):
         f"{launches}")
     assert sorted(evals) == [1, 2], (evals, launches)
     return {"wall_s": wall, "evals": evals, "launches": launches}
+
+
+# ---------------------------------------------------------------------
+# phases 14-17: the model variants the charts run
+# ---------------------------------------------------------------------
+
+#: the optimized chart's operating point (charts/maskrcnn-optimized)
+BF16_TRAIN = ("TRAIN.PRECISION=bfloat16", "TRAIN.REMAT=True")
+#: the cascade overlay (charts/maskrcnn/values-cascade-r101.yaml)
+CASCADE = ("MODE_CASCADE=True", "BACKBONE.RESNET_NUM_BLOCKS=(3,4,23,3)")
+CASCADE_STEPS = 4
+#: overrides under every variant phase's own (none on the card: full
+#: width; a CPU rehearsal sets SMOKE widths here)
+VARIANT_BASE = ()
+#: card vs CPU under bf16 compute: losses and grad_norm to 8 bf16
+#: epsilons (cuDNN's and oneDNN's bf16 convolutions round their outputs
+#: after sums in other orders; the CPU tests hold the port to JAX's
+#: bf16 at 4 epsilons of a trunk output, 0.2 % of a loss); each
+#: gradient and update tensor to twice what bf16 itself moves that
+#: tensor on the CPU (phase_train_reference)
+BF16_LOSS_TOL = 8 * BF16_EPS
+#: the least tolerance of one gradient or update tensor under bf16
+#: compute (phase_train_reference): 8 bf16 epsilons of its largest
+#: magnitude, where the CPU's own bf16-vs-float32 difference is smaller
+BF16_TENSOR_FLOOR = 8 * BF16_EPS
+#: card vs CPU with GroupNorm at the variants' seed: the losses to 1e-4
+#: as float32, gradients and updates to 5e-2 of each tensor's largest
+#: magnitude.  The GN model's gradients there are ill-conditioned: a
+#: 1e-7 relative change of the weights moves them by 1.1e-2 of their
+#: largest magnitude on the CPU (FreezeBN: 3.2e-6), with the proposals
+#: shared or not, so no two orders of summation agree closer
+GN_GRAD_TOL = 5e-2
+
+
+def variant_config(*overrides, training: bool = True):
+    """A clone of the global config with ``overrides``, finalized (the
+    global config stays as it is, so no phase inherits a variant)."""
+    from eksml_tpu_torch.config import config, finalize_configs
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(VARIANT_BASE) + list(overrides))
+    return finalize_configs(training, cfg)
+
+
+def _train_run(cfg, kernels, seed: int, logdir: str, batches, want,
+               tag: str, keep: bool = False):
+    """``len(batches)`` steps of ``Trainer.fit`` at ``cfg`` from seed
+    weights: step 1 apart from the median of the rest, peak memory after
+    step 1, the state bytes, the kernels' launches per step (held to
+    ``want``) and finite losses.  The counts start at 0 just before the
+    run.  Returns the record (and the trainer, with ``keep``)."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.train import Trainer
+
+    steps = len(batches)
+    trainer = Trainer(cfg, logdir=logdir, device="cuda")
+    trainer.init_state(init_params(cfg, torch.Generator().manual_seed(seed)))
+    it = iter(batches)
+    for k in kernels:
+        k.launches = 0
+    rows = trainer.fit(it, 1)
+    torch.cuda.synchronize()
+    step1 = {k.name: k.launches for k in kernels}
+    torch.cuda.reset_peak_memory_stats()
+    rows += trainer.fit(it, steps, start_step=1)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    param_bytes, opt_bytes = trainer.state_bytes()
+    loss_keys = [k for k in rows[0] if k.endswith("_loss")]
+    for r in rows:
+        log(f"[{tag}] step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.5g}" for k in loss_keys + ["grad_norm"])
+            + f"; {r['step_time_ms']:.1f} ms")
+    times = sorted(r["step_time_ms"] for r in rows[1:])
+    median = float(np.median(times))
+    dtypes = sorted({str(v.dtype) for v in trainer.model.state_dict()
+                     .values()})
+    log(f"[{tag}] step 1 {rows[0]['step_time_ms'] / 1e3:.2f} s; steps "
+        f"2-{steps} median {median:.1f} ms (min {times[0]:.1f}, max "
+        f"{times[-1]:.1f}); peak after step 1 {peak / 2 ** 30:.2f} GiB; "
+        f"state bytes: params {param_bytes}, optimizer {opt_bytes} "
+        f"({', '.join(dtypes)}); launches in step 1 {step1}, in {steps} "
+        f"steps {launches}")
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        assert not bad, f"{tag} step {r['step']}: non-finite {bad}"
+    assert step1 == want, f"{tag}: launches in one step {step1}, want {want}"
+    assert launches == {k: n * steps for k, n in want.items()}, launches
+    rec = {"step1_s": rows[0]["step_time_ms"] / 1e3, "median_ms": median,
+           "peak_bytes": peak, "param_bytes": param_bytes,
+           "opt_bytes": opt_bytes, "launches": launches,
+           "launches_per_step": step1, "rows": rows}
+    if keep:
+        return rec, trainer
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _synthetic_batches(cfg, seed: int, batch: int, steps: int):
+    from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+
+    ds = SyntheticDataset(num_images=2 * batch, height=800, width=1333,
+                          max_boxes=8, num_classes=cfg.DATA.NUM_CLASSES,
+                          seed=seed)
+    loader = DetectionLoader(ds.records(), cfg, batch, seed=seed,
+                             with_masks=cfg.MODE_MASK, gt_mask_size=56)
+    return list(loader.batches(steps))
+
+
+def phase_train_bf16(kernels, seed: int, workdir: str):
+    """The optimized chart's operating point: R50-FPN at full width and
+    depth, ``TRAIN.PRECISION=bfloat16``, ``TRAIN.REMAT=True``, 1344²,
+    batch 4, float32 storage, seed weights: ``TRAIN_STEPS`` steps; then 3
+    steps with ``REMAT=False`` and 3 with ``PARAM_DTYPE=bfloat16`` (REMAT
+    on), in this thread (their convolutions reuse the first run's cuDNN
+    autotune)."""
+    base = (f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.LOG_PERIOD=1")
+    cfg = variant_config(*base, *BF16_TRAIN)
+    batches = _synthetic_batches(cfg, seed, BATCH, TRAIN_STEPS)
+    want = {kernels.fwd.name: 3, kernels.bwd.name: 2,
+            kernels.copy.name: 2 * len(LEVEL_STRIDES)}
+    out = {}
+    for name, extra, steps in (
+            ("remat", (), TRAIN_STEPS),
+            ("no_remat", ("TRAIN.REMAT=False",), min(3, TRAIN_STEPS)),
+            ("param_bf16", ("TRAIN.PARAM_DTYPE=bfloat16",),
+             min(3, TRAIN_STEPS))):
+        cfg = variant_config(*base, *BF16_TRAIN, *extra)
+        out[name] = _train_run(cfg, kernels, seed,
+                               os.path.join(workdir, f"train_bf16_{name}"),
+                               batches[:steps], want, f"train_bf16 {name}")
+    r, n, p = out["remat"], out["no_remat"], out["param_bf16"]
+    log(f"[train_bf16] peak after step 1: REMAT {r['peak_bytes'] / 2 ** 30:.2f}"
+        f" GiB, no REMAT {n['peak_bytes'] / 2 ** 30:.2f} GiB; state bytes "
+        f"f32 storage {r['param_bytes'] + r['opt_bytes']}, bf16 storage "
+        f"{p['param_bytes'] + p['opt_bytes']}")
+    assert p["param_bytes"] * 2 == r["param_bytes"], (p, r)
+    assert p["opt_bytes"] * 2 == r["opt_bytes"], (p, r)
+    out["memory"] = {
+        name: _step_memory(variant_config(*base, *BF16_TRAIN, *extra),
+                           seed, batches[0], f"train_bf16 {name}")
+        for name, extra in (("remat", ()),
+                            ("no_remat", ("TRAIN.REMAT=False",)))}
+    out["launches"] = r["launches"]
+    return out
+
+
+def _step_memory(cfg, seed: int, batch, tag: str) -> dict:
+    """Where one training forward and backward of ``cfg``'s model holds
+    its memory (seed weights, ``batch``; bytes above the weights): what
+    the backbone and FPN forward alone keep for the backward, what the
+    whole forward keeps, the forward's peak and the backward's peak."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import HOST_ONLY_KEYS
+    from eksml_tpu_torch.device import resolve_device
+    from eksml_tpu_torch.models import MaskRCNN
+
+    dev = resolve_device("cuda")
+    model = MaskRCNN.from_config(cfg)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(
+        seed)))
+    model.to(dev).train()
+    x = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+         if k not in HOST_ONLY_KEYS}
+    b, h, w = x["images"].shape[:3]
+    pri = model.make_priorities((b, h, w, x["gt_boxes"].shape[1]),
+                                torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    feats = model._features(x["images"])
+    torch.cuda.synchronize()
+    features_kept = torch.cuda.memory_allocated() - base
+    del feats
+    # the forward cut at each top-level module's start and end: the
+    # peak of each piece (the code before a module, the module itself)
+    # and what is allocated when it ends
+    segments = {}
+
+    def mark(label):
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        now = torch.cuda.memory_allocated() - base
+        if peak >= segments.get(label, (-1, 0))[0]:
+            segments[label] = (peak, now)
+        torch.cuda.reset_peak_memory_stats()
+
+    hooks = []
+    for name, child in model.named_children():
+        hooks.append(child.register_forward_pre_hook(
+            lambda m, a, name=name: mark(f"before {name}")))
+        hooks.append(child.register_forward_hook(
+            lambda m, a, o, name=name: mark(f"in {name}")))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = model(x, pri)["total_loss"]
+    mark("after the last module (losses)")
+    for h in hooks:
+        h.remove()
+    rec = {"features_kept": features_kept,
+           "forward_kept": torch.cuda.memory_allocated() - base,
+           "forward_peak": max(p for p, _ in segments.values()),
+           "forward_segments": segments}
+    top = sorted(segments.items(), key=lambda kv: -kv[1][0])[:3]
+    log(f"[{tag}] the forward's largest peaks above the weights: " + "; ".join(
+        f"{label} {p / 2 ** 30:.2f} GiB ({n / 2 ** 30:.2f} GiB allocated "
+        "at its end)" for label, (p, n) in top))
+    torch.cuda.reset_peak_memory_stats()
+    loss.backward()
+    torch.cuda.synchronize()
+    rec["backward_peak"] = torch.cuda.max_memory_allocated() - base
+    log(f"[{tag}] memory of one step above the weights: the backbone and "
+        f"FPN forward keep {rec['features_kept'] / 2 ** 30:.2f} GiB for "
+        f"the backward, the whole forward keeps "
+        f"{rec['forward_kept'] / 2 ** 30:.2f} GiB; peak in the forward "
+        f"{rec['forward_peak'] / 2 ** 30:.2f} GiB, in the backward "
+        f"{rec['backward_peak'] / 2 ** 30:.2f} GiB")
+    del model, x, pri, loss
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_bf16(kernels, seed: int):
+    """The serve chart's default (``TRAIN.PRECISION=bfloat16``) through
+    the serve phase's path, then the card against the CPU on one SMOKE
+    batch (256², bf16)."""
+    cfg = variant_config("SERVE.MAX_BATCH_DELAY_MS=250",
+                         "TRAIN.PRECISION=bfloat16", training=False)
+    engine, rec = phase_serve(cfg, kernels, seed, tag="serve_bf16")
+    engine.close()
+    del engine
+    rec["reference"] = serve_bf16_reference(seed)
+    return rec
+
+
+def serve_bf16_reference(seed: int, img: int = 256):
+    """SMOKE widths in bf16 compute, the same weights on the card and on
+    the CPU, a batch of 2 ``img``² images: P2..P6 and the box logits to
+    ``BF16_LOSS_TOL`` of each tensor's largest magnitude (the phase
+    reference's comparison), and ``predict``'s outputs finite and of the
+    contract's shapes on both."""
+    import torch
+
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.device import resolve_device
+    from eksml_tpu_torch.models import MaskRCNN
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + [
+        f"PREPROC.MAX_SIZE={img}", f"PREPROC.TEST_SHORT_EDGE_SIZE={img}",
+        "TRAIN.PRECISION=bfloat16"])
+    cfg.freeze()
+    model = MaskRCNN.from_config(cfg)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(
+        seed)))
+    model.to(resolve_device("cuda")).eval()
+    phase_reference(model, seed, tol=BF16_LOSS_TOL, tag="serve_bf16")
+    return {"tolerance": BF16_LOSS_TOL}
+
+
+def phase_cascade(kernels, seed: int, workdir: str, records=None):
+    """The cascade overlay: Cascade R-CNN on R101-FPN at full width,
+    float32, 1344², batch 1, seed weights: ``CASCADE_STEPS`` steps of
+    ``Trainer.fit`` (launches 5 / 4 / 16 per step), then one predict
+    batch (4 forward launches), timed after a first call that pays the
+    new shapes' autotune."""
+    import torch
+
+    cfg = variant_config(f"TRAIN.BATCH_SIZE_PER_CHIP={CASCADE_BATCH}",
+                         "TRAIN.LOG_PERIOD=1", *CASCADE)
+    batches = _synthetic_batches(cfg, seed, CASCADE_BATCH, CASCADE_STEPS)
+    stages = CASCADE_STAGES
+    want = {kernels.fwd.name: stages + 2, kernels.bwd.name: stages + 1,
+            kernels.copy.name: (stages + 1) * len(LEVEL_STRIDES)}
+    rec, trainer = _train_run(cfg, kernels, seed,
+                              os.path.join(workdir, "cascade"), batches,
+                              want, "cascade", keep=True)
+    model = trainer.model
+    model.eval()
+    x = torch.from_numpy(batches[0]["images"]).to(trainer.device)
+    hw = torch.from_numpy(batches[0]["image_hw"]).float().to(trainer.device)
+    t0 = time.perf_counter()
+    model.predict(x, hw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = model.predict(x, hw)
+    torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels}
+    d = model.test_results_per_im
+    log(f"[cascade] predict of batch {CASCADE_BATCH} at "
+        f"{tuple(x.shape[1:3])}: first {first_s:.2f} s (autotune), then "
+        f"{predict_ms:.1f} ms; launches {launches}; "
+        f"{int(out['valid'].sum())} valid of {d}")
+    assert launches == {kernels.fwd.name: stages + 1, kernels.bwd.name: 0,
+                        kernels.copy.name: 0}, launches
+    assert out["boxes"].shape == (CASCADE_BATCH, d, 4)
+    assert out["masks"].shape == (CASCADE_BATCH, d, 28, 28)
+    for k in ("boxes", "scores", "masks"):
+        v = out[k][out["valid"]] if k != "masks" else out[k]
+        assert bool(torch.isfinite(v).all()), k
+    if records:
+        for name, recs in records.items():
+            step = [r for r in recs if r["call"] == CASCADE_STEP_CALL]
+            if step:
+                log(f"[cascade] {name} per step (kernel phase, batch "
+                    f"{CASCADE_BATCH}): {step[0]['ms']:.4f} ms, bound "
+                    f"{step[0]['bound_ms'] * 1e3:.1f} us")
+    trainer.close()
+    del trainer, model, out
+    torch.cuda.empty_cache()
+    rec.update(predict_first_s=first_s, predict_ms=predict_ms,
+               predict_launches=launches)
+    return rec
+
+
+def phase_variants_reference(seed: int, img: int = 256):
+    """One training step on the card and one on the CPU from the same
+    weights, batch and priorities (``phase_train_reference``) for each
+    variant: bf16 compute, GroupNorm, the cascade, REMAT."""
+    out = {}
+    for name, extra, tols in (
+            ("bfloat16", ("TRAIN.PRECISION=bfloat16",),
+             dict(loss_tol=BF16_LOSS_TOL, share_proposals=True)),
+            ("gn", ("BACKBONE.NORM=GN",), dict(loss_tol=1e-4,
+                                                tol=GN_GRAD_TOL,
+                                                update_tol=GN_GRAD_TOL)),
+            ("cascade", ("MODE_CASCADE=True",), {}),
+            ("remat", ("TRAIN.REMAT=True",), {})):
+        r = phase_train_reference(seed, img, extra=extra,
+                                  tag=f"variants_reference {name}", **tols)
+        out[name] = {k: v for k, v in r.items() if k != "loss_values"}
+    return out
 
 
 RANKS_EVAL_SEED = 11
@@ -2134,59 +2677,86 @@ def main(argv=None) -> int:
         f"CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
 
+    walls = {}
     # the kernels build first whatever phases run
-    phase_build(KERNELS)
-    records = phase_kernel(KERNELS, args.seed) if "kernel" in phases else {}
+    timed(walls, "build", phase_build, KERNELS)
+    records = (timed(walls, "kernel", phase_kernel, KERNELS, args.seed)
+               if "kernel" in phases else {})
     # the lifecycle phase reloads into the serve phase's engine and
     # resumes the train phase's run
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     engine = serve = train = life = dist_out = None
     ranks = evaluated = eval_ref = coco = None
+    bf16 = serve16 = cascade = variants = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
-            engine, serve = phase_serve(serve_config(), KERNELS, args.seed)
+            engine, serve = timed(walls, "serve", phase_serve,
+                                  serve_config(), KERNELS, args.seed)
         if "reference" in phases:
-            phase_reference(engine.model, args.seed)
+            timed(walls, "reference", phase_reference, engine.model,
+                  args.seed)
         if "profile" in phases:
-            phase_profile(engine, args.seed)
+            timed(walls, "profile", phase_profile, engine, args.seed)
         if {"train", "lifecycle", "dist", "eval"} & set(phases):
             cfg = train_config()
-            trainer, batches, train = phase_train(
-                cfg, KERNELS, args.seed, os.path.join(workdir, "train"),
+            trainer, batches, train = timed(
+                walls, "train", phase_train, cfg, KERNELS, args.seed,
+                os.path.join(workdir, "train"),
                 extra_batches=("profile" in phases)
                 + ("lifecycle" in phases))
             if "profile" in phases:
                 # one batch to a total one step further: the profiled
                 # step is not the run's last, which checkpoints
-                profile_window(
-                    f"training step {TRAIN_STEPS + 1} at {CANVAS}x{CANVAS}, "
-                    f"batch {BATCH}", lambda: trainer.fit(
-                        iter([next(batches)]), TRAIN_STEPS + 2,
-                        start_step=TRAIN_STEPS))
+                timed(walls, "profile (training step)", profile_window,
+                      f"training step {TRAIN_STEPS + 1} at "
+                      f"{CANVAS}x{CANVAS}, batch {BATCH}",
+                      lambda: trainer.fit(
+                          iter([next(batches)]), TRAIN_STEPS + 2,
+                          start_step=TRAIN_STEPS))
             if "eval" in phases:
-                evaluated = phase_eval(cfg, KERNELS, trainer, workdir,
-                                       args.seed)
+                evaluated = timed(walls, "eval", phase_eval, cfg, KERNELS,
+                                  trainer, workdir, args.seed)
             if "lifecycle" in phases:
-                life = phase_lifecycle(cfg, KERNELS, trainer, batches,
-                                       engine, serve, workdir)
+                life = timed(walls, "lifecycle", phase_lifecycle, cfg,
+                             KERNELS, trainer, batches, engine, serve,
+                             workdir)
             trainer.close()
             del trainer, batches
             torch.cuda.empty_cache()
             if "dist" in phases:
-                dist_out = phase_dist(cfg, KERNELS, args.seed, train, workdir)
+                dist_out = timed(walls, "dist", phase_dist, cfg, KERNELS,
+                                 args.seed, train, workdir)
         if engine is not None:
             engine.close()
+            del engine
+            torch.cuda.empty_cache()
         if "ranks" in phases:
-            ranks = phase_ranks(workdir)
+            ranks = timed(walls, "ranks", phase_ranks, workdir)
         if "train_reference" in phases:
-            phase_train_reference(args.seed)
+            timed(walls, "train_reference", phase_train_reference, args.seed)
         if "eval_reference" in phases:
-            eval_ref = phase_eval_reference(KERNELS, args.seed, workdir)
+            eval_ref = timed(walls, "eval_reference", phase_eval_reference,
+                             KERNELS, args.seed, workdir)
         if "coco" in phases:
-            coco = phase_coco(KERNELS, args.seed, workdir)
+            coco = timed(walls, "coco", phase_coco, KERNELS, args.seed,
+                         workdir)
+        if "train_bf16" in phases:
+            bf16 = timed(walls, "train_bf16", phase_train_bf16, KERNELS,
+                         args.seed, workdir)
+        if "serve_bf16" in phases:
+            serve16 = timed(walls, "serve_bf16", phase_serve_bf16, KERNELS,
+                            args.seed)
+        if "cascade" in phases:
+            cascade = timed(walls, "cascade", phase_cascade, KERNELS,
+                            args.seed, workdir, records)
+        if "variants_reference" in phases:
+            variants = timed(walls, "variants_reference",
+                             phase_variants_reference, args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s; "
+        "wall by phase: " + json.dumps(
+            {k: round(v, 1) for k, v in walls.items()}))
 
     if records:
         out = []
@@ -2218,7 +2788,16 @@ def main(argv=None) -> int:
                     "eval_reference_train_step": (
                         eval_ref["train_launches"][k.name] if eval_ref
                         else None),
-                    "coco": coco["launches"][k.name] if coco else None},
+                    "coco": coco["launches"][k.name] if coco else None,
+                    "train_bf16": (bf16["launches"][k.name] if bf16
+                                   else None),
+                    "serve_bf16": (serve16["launches"][k.name] if serve16
+                                   else None),
+                    "cascade": (cascade["launches"][k.name] if cascade
+                                else None),
+                    "cascade_predict": (
+                        cascade["predict_launches"][k.name] if cascade
+                        else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -2228,6 +2807,11 @@ def main(argv=None) -> int:
                 "library_ms": main_rec["library_ms"],
                 "library": ("dst.copy_(src)" if k is KERNELS.copy
                             else "none"),
+                # the same kernel's calls in one step of the bf16
+                # training point and of the cascade (batch 1)
+                **{key: _step_summary(recs, call) for key, call in (
+                    ("bf16_step", BF16_STEP_CALL),
+                    ("cascade_step", CASCADE_STEP_CALL))},
                 "shapes": recs,
             })
         print(json.dumps({"kernels": out}), flush=True)
@@ -2251,6 +2835,30 @@ def main(argv=None) -> int:
             {k: v for k, v in evaluated.items() if k != "launches"}))
     if eval_ref is not None:
         log(f"[eval_reference] on {cards}: " + json.dumps(eval_ref["errors"]))
+    if bf16 is not None:
+        log(f"[train_bf16] on {cards}: " + json.dumps({
+            name: {k: r[k] for k in ("step1_s", "median_ms", "peak_bytes",
+                                     "param_bytes", "opt_bytes",
+                                     "launches_per_step")}
+            for name, r in bf16.items() if name not in ("launches",
+                                                         "memory")})
+            + "; memory of one step above the weights: "
+            + json.dumps(bf16["memory"])
+            + (f"; float32 train phase of this call: median "
+               f"{train['median_s'] * 1e3:.1f} ms, peak "
+               f"{train['peak_bytes']} B" if train else ""))
+    if serve16 is not None:
+        log(f"[serve_bf16] on {cards}: " + json.dumps(
+            {k: serve16[k] for k in ("warmup_s", "wall_s", "images_per_s",
+                                     "latency_ms", "warmup_peak_bytes",
+                                     "serve_peak_bytes", "launches")}))
+    if cascade is not None:
+        log(f"[cascade] on {cards}: " + json.dumps(
+            {k: cascade[k] for k in ("step1_s", "median_ms", "peak_bytes",
+                                     "launches_per_step", "predict_first_s",
+                                     "predict_ms", "predict_launches")}))
+    if variants is not None:
+        log(f"[variants_reference] on {cards}: " + json.dumps(variants))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

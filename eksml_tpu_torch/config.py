@@ -717,12 +717,14 @@ def _define_defaults() -> None:
 _define_defaults()
 
 
-def finalize_configs(is_training: bool) -> AttrDict:
-    """Validate + derive dependent values; returns the frozen config.
+def finalize_configs(is_training: bool, cfg: AttrDict = None) -> AttrDict:
+    """Validate + derive dependent values; returns the frozen config
+    (``cfg``, a clone of the global config, or the global config).
 
     Mirrors TensorPack's ``finalize_configs`` call the notebooks re-run
     before inference (viz notebook cell 9).
     """
+    _C = config if cfg is None else cfg
     _C.freeze(False)
 
     assert _C.BACKBONE.NORM in ("FreezeBN", "GN"), _C.BACKBONE.NORM

@@ -16,7 +16,8 @@ def resolve_device(device="cuda") -> torch.device:
 
     On CUDA this also pins true float32 (cuDNN convolutions default to
     TF32, which keeps about three decimal digits, while the reference
-    computes ``TRAIN.PRECISION=float32`` in full float32) and turns on
+    computes ``TRAIN.PRECISION=float32`` in full float32), keeps
+    bfloat16 matrix products' reductions in float32, and turns on
     cuDNN's autotune, which the serving warmup runs for every shape."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -31,5 +32,9 @@ def resolve_device(device="cuda") -> torch.device:
             torch.cuda.set_device(dev)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # bfloat16 products accumulate in float32, as the reference's
+        # (cuBLAS's split-K would otherwise reduce partial sums in bf16)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.benchmark = True
     return dev

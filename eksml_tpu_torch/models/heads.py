@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eksml_tpu_torch.models.resnet import SameConv2d, to_nchw
+from eksml_tpu_torch.models.resnet import Dense, SameConv2d, cast_to, to_nchw
 from eksml_tpu_torch.models.rpn import (sigmoid_binary_cross_entropy,
                                         smooth_l1)
 from eksml_tpu_torch.ops.boxes import encode_boxes, pairwise_iou
@@ -21,32 +21,47 @@ from eksml_tpu_torch.ops.sampling import sample_by_priority
 class BoxHead(nn.Module):
     """2-FC head → per-class logits and per-class box deltas.  ROI
     features flatten in (row, column, channel) order, as in the
-    reference."""
+    reference.  ``box_dim`` is the width of the delta output: 4 per
+    class here, 4 class-agnostic in the cascade's heads
+    (``models/cascade.py``).  The matmuls run in the compute ``dtype``
+    the input is cast to; the outputs return in float32."""
 
     def __init__(self, in_dim: int, num_classes: int = 81,
-                 fc_dim: int = 1024):
+                 fc_dim: int = 1024, dtype: torch.dtype = torch.float32,
+                 box_dim: Optional[int] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.fc6 = nn.Linear(in_dim, fc_dim)
-        self.fc7 = nn.Linear(fc_dim, fc_dim)
-        setattr(self, "class", nn.Linear(fc_dim, num_classes))
-        self.box = nn.Linear(fc_dim, num_classes * 4)
+        self.dtype = dtype
+        self.fc6 = Dense(in_dim, fc_dim)
+        self.fc7 = Dense(fc_dim, fc_dim)
+        setattr(self, "class", Dense(fc_dim, num_classes))
+        self.box = Dense(fc_dim, num_classes * 4 if box_dim is None
+                         else box_dim)
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[N, P, P, C]`` → logits ``[N, K]``, deltas ``[N, K, 4]``."""
-        x = roi_feats.reshape(roi_feats.shape[0], -1)
+        logits, deltas = self.fc_outputs(roi_feats)
+        return logits, deltas.reshape(-1, self.num_classes, 4)
+
+    def fc_outputs(self, roi_feats: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[N, P, P, C]`` → float32 logits ``[N, K]`` and the box
+        layer's ``[N, box_dim]``."""
+        x = roi_feats.to(self.dtype).reshape(roi_feats.shape[0], -1)
         x = F.relu(self.fc6(x))
         x = F.relu(self.fc7(x))
-        logits = getattr(self, "class")(x)
-        return logits, self.box(x).reshape(-1, self.num_classes, 4)
+        return getattr(self, "class")(x).float(), self.box(x).float()
 
 
 class MaskHead(nn.Module):
-    """4x conv3x3 + 2x2/2 transposed conv + 1x1 per-class logits."""
+    """4x conv3x3 + 2x2/2 transposed conv + 1x1 per-class logits, in the
+    compute ``dtype``; the logits return in float32."""
 
-    def __init__(self, in_ch: int, num_classes: int = 81, dim: int = 256):
+    def __init__(self, in_ch: int, num_classes: int = 81, dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for i in range(4):
             setattr(self, f"fcn{i}", SameConv2d(in_ch if i == 0 else dim,
                                                 dim, 3))
@@ -55,11 +70,13 @@ class MaskHead(nn.Module):
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
         """``[N, P, P, C]`` NHWC → logits ``[N, 2P, 2P, K]`` NHWC."""
-        x = to_nchw(roi_feats)
+        x = to_nchw(roi_feats.to(self.dtype))
         for i in range(4):
             x = F.relu(getattr(self, f"fcn{i}")(x))
-        x = F.relu(self.deconv(x))
-        return self.conv(x).permute(0, 2, 3, 1)
+        d = self.deconv
+        x = F.relu(F.conv_transpose2d(x, cast_to(d.weight, x.dtype),
+                                      cast_to(d.bias, x.dtype), d.stride))
+        return self.conv(x).permute(0, 2, 3, 1).float()
 
 
 def max_fg_proposals(batch_per_im: int, fg_ratio: float) -> int:

@@ -1,15 +1,26 @@
-"""Mask-RCNN R50-FPN (``eksml_tpu/models/mask_rcnn.py``): the training
-forward (``forward``, the reference's ``__call__``, and
-``_mask_targets``) and inference (``predict``).
+"""Mask-RCNN R50/R101-FPN and Cascade R-CNN
+(``eksml_tpu/models/mask_rcnn.py``): the training forward (``forward``,
+the reference's ``__call__``, ``_cascade_train`` and ``_mask_targets``)
+and inference (``predict``, ``_cascade_predict``).
 
 Static shapes as in the reference: padded GT with validity masks,
 fixed proposal and sample counts, and ``TEST.RESULTS_PER_IM`` detection
 rows with a ``valid`` mask, so a batch's shapes depend only on the
 canvas and the batch size.  Every ROIAlign call (box head, mask head,
 mask targets) goes through ``dispatch_roi_align``: the CUDA kernels for
-CUDA tensors, forward and backward.  The port covers the non-cascade
-FrozenBN model in float32; the cascade heads, GroupNorm and bfloat16
-compute come with later slices.
+CUDA tensors, forward and backward.
+
+Variants (every value the reference's config accepts):
+``BACKBONE.NORM`` FreezeBN or GN, ``BACKBONE.RESNET_NUM_BLOCKS``
+(R50, R101), ``MODE_CASCADE`` (three class-agnostic box stages,
+``models/cascade.py``; the mask head keeps the stage-1 proposals),
+``TRAIN.PRECISION`` (the compute dtype: images are normalized in
+float32 and cast once, the features stay in it through ROIAlign and the
+heads, every head returns float32) and ``TRAIN.REMAT`` (the backbone and
+the FPN, each as a whole, under non-reentrant
+``torch.utils.checkpoint``: their inner activations are recomputed in
+the backward, as ``nn.remat`` does).  ``TRAIN.PARAM_DTYPE`` is the
+trainer's (``train.cast_for_storage``).
 """
 
 from __future__ import annotations
@@ -18,7 +29,11 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from eksml_tpu_torch.models.cascade import (CascadeBoxHead,
+                                            cascade_stage_losses,
+                                            refine_boxes, relabel_rois)
 from eksml_tpu_torch.models.fpn import FPN
 from eksml_tpu_torch.models.heads import (BoxHead, MaskHead,
                                           box_head_losses, mask_head_loss,
@@ -34,11 +49,20 @@ from eksml_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from eksml_tpu_torch.ops.nms import class_aware_nms
 from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
 
+#: TRAIN.PRECISION / TRAIN.PARAM_DTYPE → torch dtype
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r}: one of {sorted(DTYPES)}")
+    return DTYPES[name]
+
 
 class MaskRCNN(nn.Module):
     def __init__(self, num_classes: int = 81, with_masks: bool = True,
                  resnet_blocks: Sequence[int] = (3, 4, 6, 3),
-                 freeze_at: int = 2,
+                 norm: str = "FreezeBN", freeze_at: int = 2,
                  fpn_channels: int = 256,
                  anchor_strides: Sequence[int] = (4, 8, 16, 32, 64),
                  anchor_sizes: Sequence[float] = (32, 64, 128, 256, 512),
@@ -61,7 +85,13 @@ class MaskRCNN(nn.Module):
                  test_score_thresh: float = 0.05,
                  test_results_per_im: int = 100,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
-                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False, cascade: bool = False,
+                 cascade_ious: Sequence[float] = (0.5, 0.6, 0.7),
+                 cascade_reg_weights: Sequence[Sequence[float]] = (
+                     (10., 10., 5., 5.), (20., 20., 10., 10.),
+                     (30., 30., 15., 15.))):
         super().__init__()
         self.num_classes = num_classes
         self.with_masks = with_masks
@@ -85,15 +115,29 @@ class MaskRCNN(nn.Module):
         self.test_nms_thresh = test_nms_thresh
         self.test_score_thresh = test_score_thresh
         self.test_results_per_im = test_results_per_im
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.cascade = cascade
+        self.cascade_ious = tuple(cascade_ious)
+        self.cascade_reg_weights = tuple(tuple(w)
+                                         for w in cascade_reg_weights)
 
-        self.backbone = ResNetBackbone(resnet_blocks, freeze_at)
-        self.fpn = FPN(num_channels=fpn_channels)
-        self.rpn = RPNHead(len(self.anchor_ratios), fpn_channels)
-        self.fastrcnn = BoxHead(fpn_channels * 7 * 7, num_classes,
-                                fc_head_dim)
+        self.backbone = ResNetBackbone(resnet_blocks, freeze_at, norm,
+                                       compute_dtype)
+        self.fpn = FPN(num_channels=fpn_channels, dtype=compute_dtype)
+        self.rpn = RPNHead(len(self.anchor_ratios), fpn_channels,
+                           compute_dtype)
+        if cascade:
+            for i in range(len(self.cascade_ious)):
+                setattr(self, f"cascade{i}", CascadeBoxHead(
+                    fpn_channels * 7 * 7, num_classes, fc_head_dim,
+                    compute_dtype))
+        else:
+            self.fastrcnn = BoxHead(fpn_channels * 7 * 7, num_classes,
+                                    fc_head_dim, compute_dtype)
         if with_masks:
             self.maskrcnn = MaskHead(fpn_channels, num_classes,
-                                     mask_head_dim)
+                                     mask_head_dim, compute_dtype)
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean),
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std),
@@ -102,21 +146,11 @@ class MaskRCNN(nn.Module):
 
     @classmethod
     def from_config(cls, cfg) -> "MaskRCNN":
-        unsupported = {
-            "MODE_CASCADE": bool(cfg.MODE_CASCADE),
-            "BACKBONE.NORM": cfg.BACKBONE.NORM != "FreezeBN",
-            "TRAIN.PRECISION": cfg.TRAIN.PRECISION != "float32",
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"{', '.join(bad)}: this slice of the port runs the "
-                "non-cascade FrozenBN model in float32 (ROADMAP.md "
-                "Queue 1 lists the variants)")
         return cls(
             num_classes=cfg.DATA.NUM_CLASSES,
             with_masks=cfg.MODE_MASK,
             resnet_blocks=tuple(cfg.BACKBONE.RESNET_NUM_BLOCKS),
+            norm=cfg.BACKBONE.NORM,
             freeze_at=cfg.BACKBONE.FREEZE_AT,
             fpn_channels=cfg.FPN.NUM_CHANNEL,
             anchor_strides=tuple(cfg.FPN.ANCHOR_STRIDES),
@@ -143,18 +177,29 @@ class MaskRCNN(nn.Module):
             test_results_per_im=cfg.TEST.RESULTS_PER_IM,
             pixel_mean=tuple(cfg.PREPROC.PIXEL_MEAN),
             pixel_std=tuple(cfg.PREPROC.PIXEL_STD),
+            compute_dtype=dtype_of(cfg.TRAIN.PRECISION),
+            remat=bool(cfg.TRAIN.REMAT),
+            cascade=bool(cfg.MODE_CASCADE),
+            cascade_ious=tuple(cfg.CASCADE.IOUS),
+            cascade_reg_weights=tuple(
+                tuple(w) for w in cfg.CASCADE.BBOX_REG_WEIGHTS),
         )
 
     # ---- shared trunk ------------------------------------------------
 
     def _features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """NHWC images → P2..P6 NHWC.  uint8 input is normalized here in
-        float32 (PREPROC.DEVICE_NORMALIZE); float input is taken as
-        already normalized."""
+        """NHWC images → P2..P6 NHWC in the compute dtype.  uint8 input is
+        normalized here in float32 (PREPROC.DEVICE_NORMALIZE); float input
+        is taken as already normalized.  With ``remat`` and autograd on,
+        the backbone and the FPN each run under ``checkpoint``."""
         x = images
         if x.dtype == torch.uint8:
             x = (x.float() - self.pixel_mean) / self.pixel_std
-        return self.fpn(self.backbone(x.float()))
+        x = x.to(self.compute_dtype)
+        if self.remat and torch.is_grad_enabled():
+            c_feats = checkpoint(self.backbone, x, use_reentrant=False)
+            return checkpoint(self.fpn, c_feats, use_reentrant=False)
+        return self.fpn(self.backbone(x))
 
     def _anchors(self, image_hw: Tuple[int, int], device
                  ) -> Tuple[torch.Tensor, ...]:
@@ -199,8 +244,10 @@ class MaskRCNN(nn.Module):
                 priorities: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """Training forward → loss dict (``rpn_cls_loss``,
-        ``rpn_box_loss``, ``frcnn_cls_loss``, ``frcnn_box_loss``, with
-        masks ``mrcnn_loss``, and ``total_loss``).
+        ``rpn_box_loss``, ``frcnn_cls_loss`` and ``frcnn_box_loss`` or
+        under the cascade ``cascade{i}_cls_loss`` and
+        ``cascade{i}_box_loss``, with masks ``mrcnn_loss``, and
+        ``total_loss``), all float32.
 
         batch: images ``[B, H, W, 3]`` (uint8 or normalized float),
         image_hw ``[B, 2]`` true sizes, gt_boxes ``[B, G, 4]``,
@@ -251,20 +298,27 @@ class MaskRCNN(nn.Module):
         losses = {"rpn_cls_loss": rpn_cls.mean(),
                   "rpn_box_loss": rpn_box.mean()}
 
-        # --- box head ---
         s = self.frcnn_batch_per_im
         strides = self.anchor_strides[:4]
-        roi_feats = dispatch_roi_align(feats[:4], rois, strides, 7)
-        logits, deltas = self.fastrcnn(roi_feats.reshape(b * s, 7, 7, -1))
-        frcnn_cls, frcnn_box = box_head_losses(
-            logits.reshape(b, s, -1),
-            deltas.reshape(b, s, self.num_classes, 4), rois, roi_labels,
-            matched_gt, gt_boxes, fg_mask, valid_mask,
-            self.bbox_reg_weights)
-        losses["frcnn_cls_loss"] = frcnn_cls.mean()
-        losses["frcnn_box_loss"] = frcnn_box.mean()
+        if self.cascade:
+            losses.update(self._cascade_train(
+                feats, rois, roi_labels, matched_gt, fg_mask, valid_mask,
+                batch, image_hw, gt_crowd))
+        else:
+            # --- box head ---
+            roi_feats = dispatch_roi_align(feats[:4], rois, strides, 7)
+            logits, deltas = self.fastrcnn(
+                roi_feats.reshape(b * s, 7, 7, -1))
+            frcnn_cls, frcnn_box = box_head_losses(
+                logits.reshape(b, s, -1),
+                deltas.reshape(b, s, self.num_classes, 4), rois,
+                roi_labels, matched_gt, gt_boxes, fg_mask, valid_mask,
+                self.bbox_reg_weights)
+            losses["frcnn_cls_loss"] = frcnn_cls.mean()
+            losses["frcnn_box_loss"] = frcnn_box.mean()
 
-        # --- mask head, on the fg prefix the sampler compacted ---
+        # --- mask head, on the fg prefix the sampler compacted (under
+        # the cascade: of the stage-1 proposals, as the reference) ---
         if self.with_masks and "gt_masks" in batch:
             mr = self.mask_resolution
             ma = mr // 2
@@ -281,6 +335,58 @@ class MaskRCNN(nn.Module):
 
         losses["total_loss"] = sum(losses.values())
         return losses
+
+    def _cascade_heads(self):
+        return [getattr(self, f"cascade{i}")
+                for i in range(len(self.cascade_ious))]
+
+    def _cascade_train(self, feats, rois, roi_labels, matched_gt, fg_mask,
+                       valid_mask, batch, image_hw, gt_crowd
+                       ) -> Dict[str, torch.Tensor]:
+        """The three stages' losses (``cascade{i}_cls_loss``,
+        ``cascade{i}_box_loss``): stage 1 on the sampled proposals, each
+        later stage on the previous stage's refined boxes re-labeled at
+        its own IoU threshold."""
+        b, s = rois.shape[:2]
+        strides = self.anchor_strides[:4]
+        losses = {}
+        heads = self._cascade_heads()
+        for i, head in enumerate(heads):
+            roi_feats = dispatch_roi_align(feats[:4], rois, strides, 7)
+            logits, deltas = head(roi_feats.reshape(b * s, 7, 7, -1))
+            deltas = deltas.reshape(b, s, 4)
+            cls_l, box_l = cascade_stage_losses(
+                logits.reshape(b, s, -1), deltas, rois, roi_labels,
+                matched_gt, batch["gt_boxes"], fg_mask, valid_mask,
+                self.cascade_reg_weights[i])
+            losses[f"cascade{i}_cls_loss"] = cls_l.mean()
+            losses[f"cascade{i}_box_loss"] = box_l.mean()
+            if i + 1 < len(heads):
+                rois = refine_boxes(rois, deltas.detach(),
+                                    self.cascade_reg_weights[i], image_hw)
+                roi_labels, matched_gt, fg_mask = relabel_rois(
+                    rois, batch["gt_boxes"], batch["gt_classes"],
+                    batch["gt_valid"], gt_crowd, self.cascade_ious[i + 1])
+        return losses
+
+    def _cascade_predict(self, feats, prop_boxes: torch.Tensor,
+                         image_hw: torch.Tensor):
+        """Sequential refinement of ``prop_boxes [B, P, 4]``; returns the
+        final boxes and the class probabilities ``[B, P, K]`` averaged
+        over the stages."""
+        b, p = prop_boxes.shape[:2]
+        strides = self.anchor_strides[:4]
+        boxes = prop_boxes.contiguous()
+        probs_sum = None
+        heads = self._cascade_heads()
+        for i, head in enumerate(heads):
+            roi_feats = dispatch_roi_align(feats[:4], boxes, strides, 7)
+            logits, deltas = head(roi_feats.reshape(b * p, 7, 7, -1))
+            probs = torch.softmax(logits.reshape(b, p, -1), dim=-1)
+            probs_sum = probs if probs_sum is None else probs_sum + probs
+            boxes = refine_boxes(boxes, deltas.reshape(b, p, 4),
+                                 self.cascade_reg_weights[i], image_hw)
+        return boxes, probs_sum / len(heads)
 
     @torch.no_grad()
     def _mask_targets(self, rois: torch.Tensor, matched_gt: torch.Tensor,
@@ -330,19 +436,26 @@ class MaskRCNN(nn.Module):
         d = self.test_results_per_im
         strides = self.anchor_strides[:4]
 
-        roi_feats = dispatch_roi_align(feats[:4], prop_boxes, strides, 7)
-        logits, deltas = self.fastrcnn(roi_feats.reshape(b * p, 7, 7, -1))
-        probs = torch.softmax(logits, dim=-1).reshape(b, p, -1)
-        deltas = deltas.reshape(b, p, self.num_classes, 4)
+        if self.cascade:
+            boxes, probs = self._cascade_predict(feats, prop_boxes,
+                                                 image_hw)
+            score, cls = probs[..., 1:].max(dim=-1)
+            cls = cls + 1
+        else:
+            roi_feats = dispatch_roi_align(feats[:4], prop_boxes, strides, 7)
+            logits, deltas = self.fastrcnn(
+                roi_feats.reshape(b * p, 7, 7, -1))
+            probs = torch.softmax(logits, dim=-1).reshape(b, p, -1)
+            deltas = deltas.reshape(b, p, self.num_classes, 4)
 
-        # best foreground class per proposal and its own deltas
-        score, cls = probs[..., 1:].max(dim=-1)
-        cls = cls + 1
-        sel = torch.gather(deltas, 2,
-                           cls[:, :, None, None].expand(b, p, 1, 4))[:, :, 0]
-        boxes = clip_boxes(decode_boxes(sel, prop_boxes,
-                                        self.bbox_reg_weights),
-                           image_hw[:, 0:1], image_hw[:, 1:2])
+            # best foreground class per proposal and its own deltas
+            score, cls = probs[..., 1:].max(dim=-1)
+            cls = cls + 1
+            sel = torch.gather(deltas, 2, cls[:, :, None, None]
+                               .expand(b, p, 1, 4))[:, :, 0]
+            boxes = clip_boxes(decode_boxes(sel, prop_boxes,
+                                            self.bbox_reg_weights),
+                               image_hw[:, 0:1], image_hw[:, 1:2])
         neg_inf = torch.full_like(score, float("-inf"))
         score = torch.where(torch.isfinite(prop_scores), score, neg_inf)
         score = torch.where(score >= self.test_score_thresh, score, neg_inf)

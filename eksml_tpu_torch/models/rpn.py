@@ -21,10 +21,14 @@ from eksml_tpu_torch.ops.sampling import sample_mask_by_priority
 class RPNHead(nn.Module):
     """Shared 3x3 conv + 1x1 objectness / box-delta convs over every
     level.  Outputs flatten in (row, column, anchor) order, the order of
-    ``ops.anchors.generate_fpn_anchors``."""
+    ``ops.anchors.generate_fpn_anchors``.  The convolutions run in the
+    compute ``dtype``; logits and deltas return in float32, so proposal
+    decoding, NMS and the losses keep full precision."""
 
-    def __init__(self, num_anchors: int = 3, channels: int = 256):
+    def __init__(self, num_anchors: int = 3, channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = SameConv2d(channels, channels, 3)
         setattr(self, "class", SameConv2d(channels, num_anchors, 1))
         self.box = SameConv2d(channels, num_anchors * 4, 1)
@@ -36,10 +40,11 @@ class RPNHead(nn.Module):
         cls = getattr(self, "class")
         logits, deltas = [], []
         for f in feats:
-            h = F.relu(self.conv0(to_nchw(f)))
+            h = F.relu(self.conv0(to_nchw(f.to(self.dtype))))
             b = h.shape[0]
-            logits.append(cls(h).permute(0, 2, 3, 1).reshape(b, -1))
-            deltas.append(self.box(h).permute(0, 2, 3, 1).reshape(b, -1, 4))
+            logits.append(cls(h).permute(0, 2, 3, 1).reshape(b, -1).float())
+            deltas.append(self.box(h).permute(0, 2, 3, 1)
+                          .reshape(b, -1, 4).float())
         return logits, deltas
 
 

@@ -345,7 +345,8 @@ class ShardingPlan:
         units = [[getattr(model.backbone, n) for n in names]
                  for names in model.backbone.stage_names]
         units += [getattr(model, n) for n in
-                  ("fpn", "rpn", "fastrcnn", "maskrcnn")
+                  ("fpn", "rpn", "fastrcnn", "cascade0", "cascade1",
+                   "cascade2", "maskrcnn")
                   if hasattr(model, n)]
         for unit in units:
             fully_shard(unit, mesh=mesh)

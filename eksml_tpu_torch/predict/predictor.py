@@ -25,7 +25,13 @@ def restore_predict_params(cfg, logdir: str, step: Optional[int] = None
     definition for the predictor, the serving engine and the reload
     manager: all load exactly what the trainer saved.  ``cfg`` is the
     reference's argument (its restore rebuilds a state skeleton); the
-    port's checkpoint carries its own structure."""
+    port's checkpoint carries its own structure.
+
+    Float tensors come back in float32 whatever ``TRAIN.PARAM_DTYPE``
+    stored: the reference restores into a skeleton of freshly
+    initialized, float32 params, and its restore casts to them.  So a
+    bfloat16-storage checkpoint serves (and hot-reloads into a float32
+    engine) with its values exactly, widened."""
     from eksml_tpu_torch.utils.checkpoint import CheckpointManager
 
     ckpt = CheckpointManager(logdir)
@@ -34,7 +40,9 @@ def restore_predict_params(cfg, logdir: str, step: Optional[int] = None
         raise FileNotFoundError(f"no checkpoints under {logdir}")
     log.info("restoring checkpoint step %d from %s", step, logdir)
     # mapped: the optimizer's half of the file is never read
-    return ckpt.restore(step, mmap=True)["model"]
+    model = ckpt.restore(step, mmap=True)["model"]
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in model.items()}
 
 
 @dataclasses.dataclass

@@ -13,6 +13,16 @@ momentum trace (``t = g + m·t``, update ``-lr·t``) equals
 parameter groups is the chain; the learning rate is set from the
 schedule before each update.
 
+``TRAIN.PARAM_DTYPE=bfloat16`` stores the parameters and the FrozenBN
+statistics in bfloat16 (:func:`cast_for_storage`, the reference's
+``cast_params_for_storage``), before the optimizer is built, so the
+momentum buffers are bfloat16 too.  The gradients then arrive in
+bfloat16 and, as in optax, the global norm, the clip, the weight decay,
+the momentum and the update are computed in bfloat16, with the learning
+rate rounded to bfloat16 first (``scale_by_schedule``).
+``TRAIN.PRECISION`` and ``TRAIN.REMAT`` are the model's
+(``models/mask_rcnn.py``).
+
 ``Trainer`` checkpoints, auto-resumes, rolls back a divergence, exits
 resumable on SIGTERM and evaluates COCO AP every ``TRAIN.EVAL_PERIOD``
 epochs; ``python -m eksml_tpu_torch.train`` runs it on a staged COCO
@@ -135,6 +145,27 @@ def make_optimizer(model: torch.nn.Module, cfg):
     return opt, sched
 
 
+def cast_for_storage(model: torch.nn.Module, param_dtype: str) -> None:
+    """``TRAIN.PARAM_DTYPE`` storage: with ``bfloat16`` every float32
+    parameter and persistent buffer of ``model`` (the reference's Flax
+    params: kernels, biases, norm parameters, FrozenBN statistics)
+    becomes bfloat16, in place; ``float32`` changes nothing.  Call it
+    before the optimizer is built and before any wrapper."""
+    from eksml_tpu_torch.models.mask_rcnn import dtype_of
+
+    dtype = dtype_of(param_dtype)
+    if dtype == torch.float32:
+        return
+    persistent = set(model.state_dict())
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(dtype)
+        for name, b in model.named_buffers():
+            if name in persistent and b.dtype == torch.float32:
+                b.data = b.data.to(dtype)
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     """This rank's shard of a DTensor (FSDP2), ``t`` itself otherwise."""
     return t.to_local() if hasattr(t, "to_local") else t
@@ -142,10 +173,12 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tensors: Sequence[torch.Tensor],
                 group=None) -> torch.Tensor:
-    """``optax.global_norm``: the square root of the sum of squares.
-    DTensor gradients (FSDP2 shards) add their local squares, summed
-    over ``group`` (the shard group) by one all-reduce, so the norm is
-    the whole gradients' and never a partial."""
+    """``optax.global_norm``: the square root of the sum of squares, in
+    the gradients' dtype (bfloat16 under bfloat16 storage, as optax: each
+    tensor's sum is accumulated in float32 and rounded, the sums added in
+    that dtype).  DTensor gradients (FSDP2 shards) add their local
+    squares, summed over ``group`` (the shard group) by one all-reduce,
+    so the norm is the whole gradients' and never a partial."""
     total = sum((t * t).sum() for t in map(_local, tensors))
     if group is not None:
         dist.all_reduce(total, group=group)
@@ -176,9 +209,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``model`` may be the plan's wrapper (DDP, or a module under FSDP2
     with ``norm_group`` its shard group).  Under a process group the
     losses and ``grad_norm`` are averaged across ranks (one all-reduce),
-    so every rank returns the same metrics: the global batch's."""
+    so every rank returns the same metrics: the global batch's.
+
+    Under bfloat16 storage the learning rate is rounded to bfloat16
+    before the update, as optax's ``scale_by_schedule`` casts it to the
+    update's dtype."""
     params = [p for group in optimizer.param_groups
               for p in group["params"]]
+    lr_dtype = params[0].dtype if params else torch.float32
 
     def step(batch: Dict[str, torch.Tensor],
              priorities: Dict[str, torch.Tensor],
@@ -196,11 +234,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if gradient_clip > 0:
             clip_by_global_norm_(grads, gradient_clip, norm)
         lr = sched(step_index)
+        if lr_dtype != torch.float32:
+            lr = float(torch.tensor(lr, dtype=lr_dtype))
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
         values = {k: v.detach() for k, v in losses.items()}
-        values["grad_norm"] = norm.detach()
+        values["grad_norm"] = norm.detach().float()
         if dist.is_initialized() and dist.get_world_size() > 1:
             vec = torch.stack(list(values.values()))
             dist.all_reduce(vec)
@@ -256,7 +296,7 @@ class Trainer:
 
     Not read yet: ``TELEMETRY.*`` beyond the flight recorder, the host
     aggregation and the ``TRACING``/goodput/exporter parts (ROADMAP.md
-    Queue 1 item 7), ``TRAIN.REMAT``, ``TRAIN.PARAM_DTYPE``."""
+    Queue 1 item 7)."""
 
     def __init__(self, cfg, logdir: str, device="cuda", eval_fn=None):
         self.cfg = cfg
@@ -277,6 +317,7 @@ class Trainer:
 
             KERNELS.load()
         self.model = MaskRCNN.from_config(cfg).to(self.device)
+        cast_for_storage(self.model, cfg.TRAIN.PARAM_DTYPE)
         #: the module the step calls (the plan's wrapper around
         #: ``model``), set by the first :meth:`init_state`
         self.train_module: Optional[torch.nn.Module] = None
@@ -350,7 +391,23 @@ class Trainer:
                                      norm_group=self.plan.norm_group)
         self.generator.manual_seed(int(self.cfg.TRAIN.SEED))
         self.step = 0
+        self._publish_memory_budget()
         return self.model
+
+    def _publish_memory_budget(self) -> None:
+        """One log line and the two state-byte gauges per (re)init: this
+        rank's parameter bytes and the optimizer's, in the storage dtype
+        under the active plan (the momentum buffers, one per trainable
+        parameter in its dtype, are made at the first step; counted
+        here at the size they will have)."""
+        trainable = [p for g in self.optimizer.param_groups
+                     for p in g["params"]]
+        pb, ob = publish_state_byte_gauges(self.model.state_dict(),
+                                           trainable)
+        log.info("memory budget/device: params %.2f MiB + optimizer state "
+                 "%.2f MiB (param_dtype=%s, sharding=%s)", pb / 2 ** 20,
+                 ob / 2 ** 20, self.cfg.TRAIN.PARAM_DTYPE,
+                 self.plan.describe())
 
     def checkpoint_state(self) -> Dict[str, Any]:
         """The live state as a checkpoint holds it, whole tensors under
@@ -371,7 +428,10 @@ class Trainer:
     def load_checkpoint_state(self, state: Optional[Dict[str, Any]]) -> None:
         """Make ``state`` (a :meth:`checkpoint_state` read back) the live
         state.  Checks names, shapes and dtypes first and raises
-        ``ValueError`` before anything changes on a mismatch.  Under a
+        ``ValueError`` before anything changes on a mismatch; float
+        tensors saved in another float dtype (a run that changed
+        ``TRAIN.PARAM_DTYPE``) load cast to the live dtype, as the
+        reference restores into its state's dtypes.  Under a
         process group a collective: ``state`` is given on the coordinator
         (``None`` elsewhere), checked there, and broadcast into every
         rank's tensors and shards."""
@@ -408,11 +468,24 @@ class Trainer:
                 "checkpoint model tensors differ from the model: missing "
                 f"{sorted(set(live) - set(saved))[:5]}, unexpected "
                 f"{sorted(set(saved) - set(live))[:5]}")
+        cast = []
         for k, v in saved.items():
-            if v.shape != live[k].shape or v.dtype != live[k].dtype:
+            same_kind = v.dtype == live[k].dtype or (
+                v.is_floating_point() and live[k].is_floating_point())
+            if v.shape != live[k].shape or not same_kind:
                 raise ValueError(
                     f"checkpoint tensor {k} is {tuple(v.shape)}/{v.dtype}, "
                     f"the model's {tuple(live[k].shape)}/{live[k].dtype}")
+            if v.dtype != live[k].dtype:
+                cast.append(k)
+        if cast:
+            # the reference restores into its state's dtypes (Orbax casts
+            # to the target), so a run that changed TRAIN.PARAM_DTYPE
+            # resumes; loading casts the tensors and the momentum buffers
+            log.warning("checkpoint holds %d tensors in another float dtype "
+                        "than the model (e.g. %s: %s -> %s); restoring them "
+                        "cast to the model's", len(cast), cast[0],
+                        saved[cast[0]].dtype, live[cast[0]].dtype)
         groups = [len(g["params"]) for g in state["optimizer"]["param_groups"]]
         want = [len(g["params"]) for g in self.optimizer.param_groups]
         if groups != want:
@@ -747,6 +820,7 @@ class Trainer:
         if not hasattr(self.model, "unshard"):
             return self.model
         replica = MaskRCNN.from_config(self.cfg).to(self.device)
+        cast_for_storage(replica, self.cfg.TRAIN.PARAM_DTYPE)
         replica.load_state_dict(full_state_dict(self.model))
         return replica
 

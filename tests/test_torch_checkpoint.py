@@ -412,8 +412,17 @@ def test_backbone_npz_matches_the_reference(jax_run, tmp_path):
       "TRAIN.SHARDING.MODEL_AXIS_SIZE=1"], "item 4"),
 ])
 def test_entry_point_options_that_wait(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_train.main(["--device", "cpu", "--logdir", str(tmp_path)] + argv)
+    # main() finalizes the global config: restore it, so the rejected
+    # overrides do not reach the next test of this process
+    saved = t_config.config.to_dict()
+    try:
+        with pytest.raises(NotImplementedError, match=match):
+            t_train.main(["--device", "cpu", "--logdir", str(tmp_path)]
+                         + argv)
+    finally:
+        t_config.config.freeze(False)
+        t_config.config.from_dict(saved)
+        t_config.config.freeze()
 
 
 # ---------------------------------------------------------------------

@@ -653,3 +653,92 @@ def test_eval_under_ddp_at_world_1_matches_the_plain_eval(cuda, tmp_path):
     assert set(results) == set(plain) and "segm/AP" in plain
     for k, v in plain.items():
         assert abs(results[k] - v) <= 1e-6, k
+
+
+# ---------------------------------------------------------------------
+# the model variants: bf16 compute, the cascade, REMAT
+# ---------------------------------------------------------------------
+
+
+def test_bf16_training_step_on_the_card_matches_the_cpu(cuda):
+    """The card-vs-CPU oracle under ``TRAIN.PRECISION=bfloat16`` on a
+    128² canvas: losses and grad_norm within 8 bfloat16 epsilons
+    (``chip_smoke.BF16_LOSS_TOL``), each gradient and update tensor
+    within twice the CPU's own bf16-vs-float32 difference of that tensor
+    on the same step (at least ``chip_smoke.BF16_TENSOR_FLOOR``), the
+    CPU step on the card's proposals (bf16 near-ties reorder top-k and
+    NMS)."""
+    out = chip_smoke.phase_train_reference(
+        seed=5, img=128, extra=("TRAIN.PRECISION=bfloat16",),
+        loss_tol=chip_smoke.BF16_LOSS_TOL, tag="gpu test bf16",
+        share_proposals=True)
+    assert out["gradient_tensors"] > 40
+
+
+def test_cascade_training_step_on_the_card_matches_the_cpu(cuda):
+    """The card-vs-CPU oracle with ``MODE_CASCADE=True`` (float32, the
+    f32 tolerances): three box stages, four ROIAlign backward calls."""
+    out = chip_smoke.phase_train_reference(
+        seed=5, img=128, extra=("MODE_CASCADE=True",), tag="gpu test cascade")
+    assert "cascade2_box_loss" in out["loss_values"]
+    assert out["gradient_tensors"] > 40
+
+
+def test_remat_on_the_card_keeps_the_losses_and_lowers_peak_memory(cuda):
+    """R50 depth at SMOKE widths, 512², batch 2: one forward and backward
+    with and without ``TRAIN.REMAT`` from the same weights, batch and
+    priorities: the same losses (within 1e-6) and gradients (within 1e-4
+    of each tensor's largest magnitude: float atomics in the ROIAlign
+    backward), and a lower peak of ``max_memory_allocated`` with REMAT."""
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import make_synthetic_batch
+    from eksml_tpu_torch.device import resolve_device
+    from eksml_tpu_torch.models import MaskRCNN
+
+    img = 512
+    dev = resolve_device("cuda")
+    out = {}
+    for remat in (False, True):
+        cfg = config.clone()
+        cfg.freeze(False)
+        cfg.update_args(list(SMOKE_OVERRIDES) + [
+            "BACKBONE.RESNET_NUM_BLOCKS=(3,4,6,3)",
+            f"PREPROC.MAX_SIZE={img}",
+            f"PREPROC.TRAIN_SHORT_EDGE_SIZE=({img},{img})",
+            f"TRAIN.REMAT={remat}"])
+        cfg.freeze()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 make_synthetic_batch(cfg, batch_size=2, image_size=img,
+                                      seed=3, gt_mask_size=28).items()
+                 if k not in ("image_scale", "image_id")}
+        model = MaskRCNN.from_config(cfg)
+        model.load_state_dict(init_params(cfg, torch.Generator()
+                                          .manual_seed(3)))
+        model.to(dev).train()
+        pri = {k: v.to(dev) for k, v in model.make_priorities(
+            (2, img, img, batch["gt_boxes"].shape[1]),
+            torch.Generator().manual_seed(4)).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses = model(batch, pri)
+        losses["total_loss"].backward()
+        torch.cuda.synchronize()
+        out[remat] = {
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "losses": {k: float(v.detach()) for k, v in losses.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters() if p.grad is not None}}
+        del model, losses, batch
+        torch.cuda.empty_cache()
+    a, b = out[False], out[True]
+    for k, v in a["losses"].items():
+        assert b["losses"][k] == pytest.approx(v, rel=1e-6), k
+    assert set(a["grads"]) == set(b["grads"])
+    for n, g in a["grads"].items():
+        scale = float(g.abs().max().clamp(min=1e-12))
+        assert float((b["grads"][n] - g).abs().max()) <= 1e-4 * scale, n
+    print(f"peak above the weights: no REMAT {a['peak']} B, REMAT "
+          f"{b['peak']} B")
+    assert b["peak"] < a["peak"], (a["peak"], b["peak"])

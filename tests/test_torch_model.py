@@ -34,12 +34,12 @@ from eksml_tpu_torch.models import MaskRCNN  # noqa: E402
 IMG = 128
 
 
-def tiny_cfg(config_mod):
+def tiny_cfg(config_mod, *extra):
     """The same tiny config in either package (both keep a copy of the
     same config tree)."""
     cfg = config_mod.config.clone()
     cfg.freeze(False)
-    cfg.update_args(list(SMOKE_OVERRIDES))
+    cfg.update_args(list(SMOKE_OVERRIDES) + list(extra))
     cfg.PREPROC.TEST_SHORT_EDGE_SIZE = IMG
     cfg.RPN.TEST_PRE_NMS_TOPK = 64
     cfg.RPN.TEST_POST_NMS_TOPK = 32
@@ -155,20 +155,45 @@ def test_predict_matches_flax(models):
                                atol=1e-4)
 
 
-def test_from_flax_and_init_params_cover_every_tensor(models):
-    _, params, model, _, _ = models
+@pytest.mark.parametrize("variant", [(), ("MODE_CASCADE=True",),
+                                     ("BACKBONE.NORM=GN",)],
+                         ids=["default", "cascade", "gn"])
+def test_from_flax_and_init_params_cover_every_tensor(models, variant):
+    if variant:
+        # the variant's Flax tree by shape only (no compile)
+        flax_model = FlaxMaskRCNN.from_config(tiny_cfg(j_config, *variant))
+        _, _, _, images, hw = models
+        shapes = jax.eval_shape(lambda r: flax_model.init(
+            r, jnp.asarray(images), jnp.asarray(hw),
+            method=FlaxMaskRCNN.predict), jax.random.PRNGKey(0))["params"]
+        params = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+        model = MaskRCNN.from_config(tiny_cfg(t_config, *variant))
+    else:
+        _, params, model, _, _ = models
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     converted = from_flax(params)
     assert {k: tuple(v.shape) for k, v in converted.items()} == want
-    seeded = init_params(tiny_cfg(t_config), torch.Generator().manual_seed(0))
+    seeded = init_params(tiny_cfg(t_config, *variant),
+                         torch.Generator().manual_seed(0))
     assert {k: tuple(v.shape) for k, v in seeded.items()} == want
-    # Flax's defaults: lecun-normal kernels, zero biases, FrozenBN 1/0
+    # Flax's defaults: lecun-normal kernels, zero biases, FrozenBN and
+    # GroupNorm scales 1, shifts 0
     w = seeded["backbone.group0_block0.conv2.weight"]      # fan_in 9*64
     std = (1.0 / (9 * 64)) ** 0.5
     assert abs(float(w.std()) / std - 1.0) < 0.05
     assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
     assert torch.equal(seeded["fpn.lateral_2.bias"],
                        torch.zeros_like(seeded["fpn.lateral_2.bias"]))
-    assert torch.equal(seeded["backbone.FrozenBN_0.var"], torch.ones(64))
-    again = init_params(tiny_cfg(t_config), torch.Generator().manual_seed(0))
+    if "BACKBONE.NORM=GN" in variant:
+        assert torch.equal(seeded["backbone.GroupNorm_0.scale"],
+                           torch.ones(64))
+        assert torch.equal(seeded["backbone.GroupNorm_0.bias"],
+                           torch.zeros(64))
+    else:
+        assert torch.equal(seeded["backbone.FrozenBN_0.var"], torch.ones(64))
+    if "MODE_CASCADE=True" in variant:
+        assert tuple(seeded["cascade2.box.weight"].shape) == (4, 64)
+        assert "fastrcnn.fc6.weight" not in seeded
+    again = init_params(tiny_cfg(t_config, *variant),
+                        torch.Generator().manual_seed(0))
     assert all(torch.equal(seeded[k], again[k]) for k in seeded)
