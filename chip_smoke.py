@@ -88,6 +88,25 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              evaluates the 2-rank run's checkpoint under FSDP2 as 2 ranks
              (``--eval-rank``) and compares rank 0's AP with one process.
 
+The variant phases (train_bf16, serve_bf16, cascade,
+variants_reference) are described at their functions.  Last:
+
+observe — the trainer's telemetry at full width: ``train.main`` in f32
+             (1344², batch 4) with the chart's telemetry on an ephemeral
+             port (``TELEMETRY.HEALTHZ_STALE_SEC``, tracing, goodput) and
+             ``--profile 2`` while a thread scrapes /metrics (the
+             preregistered families, a moving goodput ratio), /healthz
+             (200, then 503 while the loader stalls past the bound),
+             /debugz/profile (200, then 429 in the cooldown) and
+             /debugz/stacks; the span trace, the goodput bank against
+             the run's wall time, the kernels' launches; the capture's
+             device time by component (the three kernels under roi-fwd
+             and roi-bwd, "other" at most 30 %); the same capture at the
+             bf16 + REMAT point, then 20 more one-step captures in this
+             process, the last still holding the kernels; the
+             mask-target call's host time against its kernel; the step
+             median with the telemetry layer off and fully on.
+
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -116,7 +135,7 @@ import numpy as np
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "dist", "ranks", "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
-          "variants_reference")
+          "variants_reference", "observe")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -656,6 +675,27 @@ def _step_record(records, call=STEP_CALL, dtype="float32"):
             **total}
 
 
+#: torch.profiler windows this process has opened (device_ms,
+#: profile_window and the trainer captures the observe phase drives)
+PROFILER_WINDOWS = {"n": 0}
+#: the device kernel of the one-element ``add_`` that primes a window
+PRIMER_KERNEL = "CUDAFunctorOnSelf_add"
+
+
+def prime_window():
+    """The trainer's profiler primers (``train.CAPTURE_PRIMERS``
+    one-element kernels), launched first in every window of this script:
+    late in a long process a torch.profiler session loses a varying
+    count of its first device records (PERF.md §6)."""
+    import torch
+
+    from eksml_tpu_torch.train import CAPTURE_PRIMERS
+
+    primer = torch.zeros(1, device="cuda")
+    for _ in range(CAPTURE_PRIMERS):
+        primer.add_(1)
+
+
 def device_ms(fn, match: str, iters: int = 10):
     """Device-only time per call of ``fn`` from torch.profiler: the
     self device time of the kernels whose name holds ``match``, summed
@@ -668,11 +708,17 @@ def device_ms(fn, match: str, iters: int = 10):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_window()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    PROFILER_WINDOWS["n"] += 1
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key)
+             if e.device_type == DeviceType.CUDA and match in e.key
+             and PRIMER_KERNEL not in e.key)
+    if us <= 0:
+        log(f"[profiler] window {PROFILER_WINDOWS['n']} of this process saw "
+            f"no device time for {match!r}")
     return us / 1e3 / iters if us > 0 else None
 
 
@@ -1093,16 +1139,20 @@ def profile_window(label: str, fn, top: int = 15):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        prime_window()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    PROFILER_WINDOWS["n"] += 1
     # device-side events only (kernels, copies): an operator's own entry
     # also carries the device time of the kernels it launched
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+                      and e.self_device_time_total > 0
+                      and PRIMER_KERNEL not in e.key),
                      key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     log(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
@@ -2598,6 +2648,502 @@ def phase_variants_reference(seed: int, img: int = 256):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 18: observability in the trainer
+# ---------------------------------------------------------------------
+
+#: steps of the observed ``train.main`` run; its loader stalls once, for
+#: ``OBSERVE_STALL_S`` under a ``OBSERVE_STALE_S`` /healthz bound, before
+#: the first batch it builds after the scraper's two debugz requests (at
+#: the latest before the fourth batch from the end)
+OBSERVE_STEPS = 20
+OBSERVE_STALE_S = 6.0
+OBSERVE_STALL_S = 10.0
+#: one-step captures the executor takes in one process
+OBSERVE_CAPTURES = 20
+#: the goodput bank's buckets against the run's wall time (run_start to
+#: the entry point's return: the final bank row is written before the
+#: last checkpoint's background write is drained and the trainer closed)
+BUCKET_SUM_TOL = 0.05
+#: "other" at most this share of a capture's device time: the bound
+#: tests/test_profiling.py holds the reference's attribution to
+OTHER_MAX_PCT = 30.0
+#: (wrapper name, the device kernels' name prefix, the component a
+#: capture must give them)
+KERNEL_COMPONENTS = (("roi_align_fwd", "roi_align_fwd_", "roi-fwd"),
+                     ("roi_align_bwd", "roi_align_bwd_", "roi-bwd"),
+                     ("copy_to_global", "copy_bulk_kernel", "roi-bwd"))
+#: steps per configuration and turn of the telemetry-off/on comparison
+OVERHEAD_STEPS = 8
+#: the families the first /metrics scrape must hold (preregistered by
+#: the fit loop, as the reference's)
+CORE_FAMILIES = ("eksml_resilience_preemptions", "eksml_resilience_rollbacks",
+                 "eksml_checkpoint_saves", "eksml_data_quarantined_records",
+                 "eksml_goodput_ratio", "eksml_goodput_seconds",
+                 "eksml_badput_seconds", "eksml_flight_events",
+                 "eksml_train_step_duration_ms")
+
+
+def _http(port: int, path: str):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _families(body: str) -> dict:
+    """OpenMetrics text → {sample name with labels: value}."""
+    out = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def check_capture(path: str, tag: str) -> dict:
+    """Attribution of one capture's trace: the table by component, each
+    kernel's component and share; fails unless all three kernels are
+    there under their components and ``other`` stays within
+    ``OTHER_MAX_PCT``."""
+    from eksml_tpu_torch.profiling import TraceAttribution
+
+    attr = TraceAttribution(path)
+    table = attr.component_table(top_n=12)
+    kmap = attr.kernel_map()
+    total = table["device_total_ms"]
+    assert table["basis"] == "device" and total > 0, \
+        f"{tag}: the capture saw no device time"
+    kernels = {}
+    for name, prefix, comp in KERNEL_COMPONENTS:
+        hits = {k: v for k, v in kmap.items() if prefix in k}
+        assert hits, f"{tag}: no {prefix}* kernel in the capture"
+        comps = set().union(*hits.values())
+        assert comps == {comp}, f"{tag}: {prefix} under {comps}, not {comp}"
+        ms = sum(sum(v.values()) for v in hits.values())
+        kernels[name] = {"device_kernels": sorted(hits), "component": comp,
+                         "ms": round(ms, 4),
+                         "share_pct": round(100 * ms / total, 3)}
+    assert table["other_pct"] <= OTHER_MAX_PCT, \
+        f"{tag}: other {table['other_pct']}% > {OTHER_MAX_PCT}%"
+    log(f"[observe] {tag}: {total:.2f} ms of device time in "
+        f"{table['device_events']} events ({table['unlinked_device_events']}"
+        f" unjoined); by component (%): "
+        + json.dumps(table["component_pct"]))
+    log(f"[observe] {tag}: the port's kernels: " + json.dumps(kernels))
+    for k in table["top_kernels"][:8]:
+        log(f"[observe]   {k['ms']:9.3f} ms {k['pct']:5.1f}% x{k['count']:<4d}"
+            f" {k['component']:14s} {k['name'][:80]}")
+    return {"component_pct": table["component_pct"],
+            "other_pct": table["other_pct"], "device_ms": total,
+            "kernels": kernels}
+
+
+def observe_main(kernels, workdir: str, device: str = "cuda"):
+    """``train.main`` at full width, f32, with the chart's telemetry
+    (ephemeral port, a short /healthz bound, tracing, goodput) and
+    ``--profile 2``, while a thread scrapes /metrics, /healthz and the
+    /debugz endpoints; the loader stalls once, after the scraper's
+    debugz requests."""
+    from eksml_tpu_torch import train
+    from eksml_tpu_torch.config import config
+    from eksml_tpu_torch.data import loader as loader_mod
+
+    run = os.path.join(workdir, "observe")
+    os.makedirs(run, exist_ok=True)
+    port_file = os.path.join(run, "telemetry-host0.port")
+    seen = {"healthz": [], "ratio": [], "families": None, "debugz": [],
+            "stacks": None, "stall": None}
+    debugz_done = threading.Event()
+    stop = threading.Event()
+
+    def scrape():
+        port = None
+        last_metrics = 0.0
+        while not stop.is_set():
+            if port is None and os.path.exists(port_file):
+                with open(port_file) as f:
+                    port = int(f.read())
+            if port is not None:
+                try:
+                    code, _ = _http(port, "/healthz")
+                    seen["healthz"].append((time.monotonic(), code))
+                    if time.monotonic() - last_metrics > 0.5:
+                        last_metrics = time.monotonic()
+                        code, body = _http(port, "/metrics")
+                        assert code == 200, f"/metrics answered {code}"
+                        fams = _families(body)
+                        if seen["families"] is None:
+                            seen["families"] = sorted(
+                                {l.split("{")[0].split(" ")[2]
+                                 for l in body.splitlines()
+                                 if l.startswith("# TYPE")})
+                            seen["stacks"] = _http(port, "/debugz/stacks")[0]
+                        seen["ratio"].append(fams.get("eksml_goodput_ratio"))
+                        done = fams.get('eksml_flight_events_total'
+                                        '{kind="profile_capture_done"}', 0)
+                        n = len(seen["debugz"])
+                        if (n == 0 and done >= 1) or (n == 1 and done >= 2):
+                            code, body = _http(port,
+                                               "/debugz/profile?steps=1")
+                            seen["debugz"].append(
+                                (code, json.loads(body)["detail"]))
+                            if n == 1:
+                                debugz_done.set()
+                except (OSError, ValueError) as e:
+                    seen.setdefault("errors", []).append(repr(e))
+            stop.wait(0.2)
+
+    real_batches = loader_mod.DetectionLoader.batches
+
+    def stalling(self, *a, **k):
+        for i, b in enumerate(real_batches(self, *a, **k)):
+            if seen["stall"] is None and (debugz_done.is_set()
+                                          or i == OBSERVE_STEPS - 4):
+                t0 = time.monotonic()
+                time.sleep(OBSERVE_STALL_S)
+                seen["stall"] = (t0, time.monotonic())
+            yield b
+
+    saved = config.to_dict()
+    th = threading.Thread(target=scrape, name="observe-scraper", daemon=True)
+    th.start()
+    for k in kernels:
+        k.launches = 0
+    loader_mod.DetectionLoader.batches = stalling
+    try:
+        rc = train.main([
+            "--device", device, "--synthetic", "--logdir", run,
+            "--total-steps", str(OBSERVE_STEPS), "--profile", "2",
+            "--config", f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
+            "TRAIN.LOG_PERIOD=1", f"TRAIN.STEPS_PER_EPOCH={OBSERVE_STEPS}",
+            "TELEMETRY.PORT=0",
+            f"TELEMETRY.HEALTHZ_STALE_SEC={OBSERVE_STALE_S}",
+            "TELEMETRY.TRACING.ENABLED=True",
+            "TELEMETRY.GOODPUT.ENABLED=True"])
+        t_end = time.time()
+    finally:
+        loader_mod.DetectionLoader.batches = real_batches
+        stop.set()
+        th.join(timeout=30)
+        config.freeze(False)
+        config.from_dict(saved)
+        config.freeze()
+    launches = {k.name: k.launches for k in kernels}
+    assert rc == 0, f"train.main returned {rc}"
+    _per_step(kernels, launches, OBSERVE_STEPS)
+
+    # the endpoints
+    assert seen["families"], f"no /metrics scrape answered 200: {seen}"
+    missing = sorted(set(CORE_FAMILIES) - set(seen["families"]))
+    assert not missing, f"/metrics lacks the families {missing}"
+    assert seen["stacks"] == 200, f"/debugz/stacks answered {seen['stacks']}"
+    ratios = [r for r in seen["ratio"] if r is not None]
+    assert len(set(ratios)) >= 2, f"eksml_goodput_ratio did not move: {ratios}"
+    codes = [c for c, _ in seen["debugz"]]
+    assert codes == [200, 429], f"/debugz/profile answered {seen['debugz']}"
+    assert "cooldown" in seen["debugz"][1][1], seen["debugz"]
+    assert seen["stall"], "the run ended before the loader stalled"
+    t0, t1 = seen["stall"]
+    before = [c for t, c in seen["healthz"] if t < t0]
+    during = [c for t, c in seen["healthz"] if t0 <= t <= t1]
+    outside_503 = sum(c == 503 for t, c in seen["healthz"]
+                      if not t0 <= t <= t1)
+    assert 200 in before, f"/healthz before the stall: {before}"
+    assert 503 in during, f"/healthz during the stall: {during}"
+    first_503 = next(t for t, c in seen["healthz"]
+                     if c == 503 and t0 <= t <= t1)
+    log(f"[observe] /metrics: {len(seen['families'])} families, goodput "
+        f"ratio {ratios[0]} .. {ratios[-1]} over {len(ratios)} scrapes; "
+        f"/debugz/profile {seen['debugz']}; /healthz {len(before)} answers "
+        f"before the stall (200: {before.count(200)}), 503 after "
+        f"{first_503 - t0:.1f} s of a {OBSERVE_STALL_S:.0f} s stall under a "
+        f"{OBSERVE_STALE_S:.0f} s bound, {outside_503} answers of 503 "
+        "outside the stall; scrape errors: "
+        + json.dumps(seen.get("errors", [])[:3]))
+
+    # the files
+    with open(os.path.join(run, "trace-host0.json")) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"}
+    assert {"data_wait", "globalize_batch", "train_step"} <= spans, spans
+    with open(os.path.join(run, "events-host0.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    seg_start = [e["time"] for e in events if e["kind"] == "run_start"][-1]
+    with open(os.path.join(run, "goodput-host0.jsonl")) as f:
+        final = [json.loads(line) for line in f][-1]
+    assert final.get("final"), final
+    wall = t_end - seg_start
+    total = sum(final["buckets"].values())
+    assert abs(total - wall) <= BUCKET_SUM_TOL * wall, (total, wall, final)
+    log(f"[observe] goodput bank: buckets sum to {total:.3f} s against the "
+        f"run's {wall:.3f} s (run_start to return), mode {final['mode']}, "
+        f"ratio {final['goodput_ratio']}; buckets (s) "
+        + json.dumps(final["buckets"]))
+    traces = sorted(os.listdir(os.path.join(run, "profile")))
+    cli = os.path.join(run, "profile", "trace-step2-host0.json")
+    assert os.path.exists(cli), traces
+    PROFILER_WINDOWS["n"] += len(traces)
+    with open(cli) as f:
+        users = sum(1 for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "user_annotation")
+    return {"launches": launches, "attribution": check_capture(
+                cli, "f32 capture of steps 2-3 (--profile 2)"),
+            "scopes_per_step": users / 2, "traces": traces,
+            "goodput": final, "wall_s": wall,
+            "healthz_503_after_s": first_503 - t0}
+
+
+def _capture_fit(trainer, batch, step: int):
+    """One ``fit`` over two batches whose second step the executor
+    captures (the run ends with the batches, so no final checkpoint);
+    returns the new step and the capture's record."""
+    trainer.fit(iter([batch, batch]), 10 ** 9, start_step=step,
+                profile_steps=1)
+    PROFILER_WINDOWS["n"] += 1
+    cap = trainer.last_capture
+    assert cap is not None and cap["end_step"] == step + 2, cap
+    assert cap["profiler"] and cap["trace"], \
+        f"capture after step {step + 1} did not start or write: {cap}"
+    return step + 2, cap
+
+
+def observe_bf16(seed: int, workdir: str, device: str = "cuda"):
+    """The optimized chart's point (bf16 + REMAT, f32 storage) captured
+    by the executor, then ``OBSERVE_CAPTURES`` more one-step captures in
+    this process: the last must still see the kernels."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.train import Trainer
+
+    cfg = variant_config(f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
+                         "TRAIN.LOG_PERIOD=1", *BF16_TRAIN,
+                         "TELEMETRY.PORT=0", "TRAIN.STEPS_PER_EPOCH=1000",
+                         "TELEMETRY.TRACING.MAX_CAPTURES_PER_RUN=100")
+    batch = _synthetic_batches(cfg, seed, BATCH, 1)[0]
+    trainer = Trainer(cfg, os.path.join(workdir, "observe_bf16"),
+                      device=device)
+    trainer.init_state(init_params(cfg, torch.Generator().manual_seed(seed)))
+    step, cap = _capture_fit(trainer, batch, 0)
+    first = check_capture(cap["trace"], "bf16 + REMAT capture of step 2")
+    counts = []
+    t0 = time.perf_counter()
+    for i in range(OBSERVE_CAPTURES):
+        step, cap = _capture_fit(trainer, batch, step)
+        comps = cap["table"]["component_pct"]
+        counts.append((cap["table"]["device_events"],
+                       "roi-fwd" in comps and "roi-bwd" in comps))
+        if i + 1 < OBSERVE_CAPTURES:
+            os.remove(cap["trace"])      # the disk keeps the last one
+    wall = time.perf_counter() - t0
+    log(f"[observe] {OBSERVE_CAPTURES} more one-step captures in "
+        f"{wall:.1f} s ({PROFILER_WINDOWS['n']} torch.profiler windows in "
+        "this process so far): (device events, "
+        f"ROIAlign components present) per capture {counts}")
+    last = check_capture(cap["trace"], f"capture {OBSERVE_CAPTURES + 1} of "
+                         "this trainer's executor")
+    trainer.close()
+    return {"bf16": first, "captures": counts, "last": last,
+            "captures_wall_s": wall}
+
+
+#: ``profiler_windows``' sequences: (name, CPU activity too, seconds
+#: between one window's end and the next one's start, one-element
+#: kernels launched right after the window's start, seconds between
+#: launches, launches per window, windows)
+WINDOW_SEQUENCES = (
+    ("cuda_back_to_back", False, 0.0, 0, 0.0, 10, 20),
+    ("cuda_100ms_apart", False, 0.1, 0, 0.0, 10, 10),
+    ("cuda_launches_1ms_apart", False, 0.1, 0, 0.001, 100, 2),
+    ("cuda_after_16_primers", False, 0.1, 16, 0.0, 10, 10),
+    ("cuda_after_64_primers", False, 0.1, 64, 0.0, 10, 10),
+    ("cuda_launches_1ms_apart_after_64_primers", False, 0.1, 64, 0.001,
+     100, 2),
+    ("cpu_cuda_1s_apart_after_64_primers", True, 1.0, 64, 0.0, 10, 4))
+
+
+def profiler_windows(kernels, seed: int):
+    """How many of a window's kernels torch.profiler records, window by
+    window, in sequences (``WINDOW_SEQUENCES``) that differ in the
+    activities (CUDA only, as the kernel phase's ``device_ms``; CPU and
+    CUDA, as the trainer's captures), the gap between windows (back to
+    back, as ``device_ms``; apart, as the trainer's captures), the
+    one-element kernels launched first, and the spacing of the window's
+    launches; each launch a mask-target call.  Returns {sequence:
+    [kernels recorded per window]}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    masks, rois = mask_target_inputs(np.random.RandomState(seed),
+                                     MASK_TARGETS[2] * BATCH)
+    feats = (torch.from_numpy(masks).cuda(),)
+    r = torch.from_numpy(rois).cuda()
+    seen = {}
+    primer = torch.zeros(1, device="cuda")
+    for (name, with_cpu, gap, primers, spacing, launches,
+         n) in WINDOW_SEQUENCES:
+        activities = ([ProfilerActivity.CPU] if with_cpu else []) + [
+            ProfilerActivity.CUDA]
+        seen[name] = []
+        for _ in range(n):
+            kernels.fwd(feats, r, (1,), MASK_TARGETS[1])
+            torch.cuda.synchronize()
+            time.sleep(gap)
+            with profile(activities=activities) as prof:
+                for _ in range(primers):
+                    primer.add_(1)
+                for _ in range(launches):
+                    kernels.fwd(feats, r, (1,), MASK_TARGETS[1])
+                    if spacing:
+                        time.sleep(spacing)
+                torch.cuda.synchronize()
+            PROFILER_WINDOWS["n"] += 1
+            seen[name].append(sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "roi_align_fwd_" in e.key))
+    log("[observe] torch.profiler windows, kernels recorded per window, in "
+        "order: " + json.dumps(seen))
+    return seen
+
+
+def mask_target_launch(kernels, seed: int, iters: int = 200):
+    """The mask-target ROIAlign call (``MASK_TARGETS``: 512 maps of 56²,
+    C = 1, out 28) timed apart from its kernel: the host's time for the
+    call to return (the wrapper alone, and the model's call through
+    ``dispatch_roi_align``: scope, autograd Function, wrapper), the
+    CUDA-event time per back-to-back call, and the kernel's device-only
+    time."""
+    import torch
+
+    from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
+
+    masks, rois = mask_target_inputs(np.random.RandomState(seed),
+                                     MASK_TARGETS[2] * BATCH)
+    feats = (torch.from_numpy(masks).cuda(),)
+    r = torch.from_numpy(rois).cuda()
+    out = MASK_TARGETS[1]
+    calls = {"wrapper": lambda: kernels.fwd(feats, r, (1,), out),
+             "dispatch_roi_align": lambda: dispatch_roi_align(
+                 feats, r, (1,), out)}
+    res = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            host.sort()
+            res[name] = {"host_median_ms": host[len(host) // 2],
+                         "host_p10_ms": host[len(host) // 10],
+                         "host_p90_ms": host[len(host) * 9 // 10],
+                         "event_ms": time_ms(fn, iters=50, warmup=5)}
+        res["device_ms"] = device_ms(calls["wrapper"], "roi_align_fwd_",
+                                     iters=50)
+    log(f"[observe] mask-target call ({len(rois)} maps of "
+        f"{masks.shape[1]}x{masks.shape[2]}, C=1, out {out}): "
+        + json.dumps(res))
+    assert res["device_ms"], "the profiler saw no mask-target kernel"
+    return res
+
+
+def _scope_cost(n: int = 100000) -> float:
+    """Microseconds per enter and exit of one named_scope range with no
+    profiler active (the host cost the scopes add to every step)."""
+    from eksml_tpu_torch.profiling import named_scope
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with named_scope("backbone"):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def observe_overhead(seed: int, workdir: str, batches,
+                     device: str = "cuda"):
+    """The f32 step median with the telemetry layer off, fully on
+    (exporter, spans, goodput, the anomaly detector, the cross-rank
+    aggregation) and on without the aggregation, in one process on this
+    thread, in turns (off, on_no_aggregate, on, on, on_no_aggregate,
+    off), ``OVERHEAD_STEPS`` steps each over the train phase's batches
+    with every step a log step (``TRAIN.LOG_PERIOD=1``: the log step's
+    work in every step, the worst case of the default 20); the first
+    step of each turn is left out."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.train import Trainer
+
+    base = (f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.LOG_PERIOD=1",
+            "TRAIN.STEPS_PER_EPOCH=1000")
+    on = ("TELEMETRY.PORT=0", "TELEMETRY.TRACING.ENABLED=True",
+          "TELEMETRY.TRACING.ANOMALY_TRIGGER=True",
+          "TELEMETRY.GOODPUT.ENABLED=True")
+    cfgs = {"off": variant_config(*base, "TELEMETRY.ENABLED=False"),
+            "on_no_aggregate": variant_config(
+                *base, *on, "TELEMETRY.AGGREGATE_HOSTS=False"),
+            "on": variant_config(*base, *on)}
+    trainers, steps, times = {}, {}, {name: [] for name in cfgs}
+    for name, cfg in cfgs.items():
+        trainers[name] = Trainer(cfg, os.path.join(workdir,
+                                                   f"overhead_{name}"),
+                                 device=device)
+        trainers[name].init_state(init_params(
+            cfg, torch.Generator().manual_seed(seed)))
+        steps[name] = 0
+    for name in list(cfgs) + list(cfgs)[::-1]:
+        src = [batches[i % len(batches)] for i in range(OVERHEAD_STEPS)]
+        # the run ends with the batches: no final checkpoint
+        rows = trainers[name].fit(iter(src), 10 ** 9, start_step=steps[name])
+        steps[name] += OVERHEAD_STEPS
+        times[name] += [r["step_time_ms"] for r in rows[1:]]
+    for t in trainers.values():
+        t.close()
+    out = {"scope_us": _scope_cost()}
+    for name, v in times.items():
+        v = sorted(v)
+        out[name] = {"median_ms": v[len(v) // 2],
+                     "q1_ms": v[(len(v) - 1) // 4],
+                     "q3_ms": v[(3 * (len(v) - 1)) // 4], "ms": times[name]}
+    off = out["off"]["median_ms"]
+    log(f"[observe] step median (every step a log step, "
+        f"{2 * (OVERHEAD_STEPS - 1)} steps each in turns): " + ", ".join(
+            f"{name} {r['median_ms']:.1f} ms (quartiles {r['q1_ms']:.1f}-"
+            f"{r['q3_ms']:.1f}, {(r['median_ms'] / off - 1) * 100:+.2f} %)"
+            for name, r in out.items() if name != "scope_us")
+        + f"; one named_scope range with no profiler active "
+        f"{out['scope_us']:.2f} us")
+    return out
+
+
+def phase_observe(kernels, seed: int, workdir: str, batches,
+                  device: str = "cuda"):
+    """The telemetry layer in the trainer at full width (the main path:
+    ``train.main`` with the chart's telemetry), the f32 and bf16 steps
+    by component, 20 captures in one process, the mask-target call's
+    launch path and the layer's cost on the step.  ``device``: "cpu"
+    rehearses the control flow (with ``check_capture`` and
+    ``mask_target_launch`` replaced)."""
+    out = observe_main(kernels, workdir, device)
+    out.update(observe_bf16(seed, workdir, device))
+    out["mask_target_call"] = mask_target_launch(kernels, seed)
+    out["profiler_windows"] = profiler_windows(kernels, seed)
+    out["overhead"] = observe_overhead(seed, workdir, batches, device)
+    out["overhead"]["scopes_per_step"] = out["scopes_per_step"]
+    out["overhead"]["scope_ms_per_step"] = (
+        out["scopes_per_step"] * out["overhead"]["scope_us"] / 1e3)
+    return out
+
+
 RANKS_EVAL_SEED = 11
 
 
@@ -2687,7 +3233,7 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     engine = serve = train = life = dist_out = None
     ranks = evaluated = eval_ref = coco = None
-    bf16 = serve16 = cascade = variants = None
+    bf16 = serve16 = cascade = variants = observed = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -2752,6 +3298,11 @@ def main(argv=None) -> int:
         if "variants_reference" in phases:
             variants = timed(walls, "variants_reference",
                              phase_variants_reference, args.seed)
+        if "observe" in phases:
+            observed = timed(
+                walls, "observe", phase_observe, KERNELS, args.seed,
+                workdir, train["batches"][:2] if train else
+                _synthetic_batches(train_config(), args.seed, BATCH, 2))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s; "
@@ -2797,7 +3348,9 @@ def main(argv=None) -> int:
                                 else None),
                     "cascade_predict": (
                         cascade["predict_launches"][k.name] if cascade
-                        else None)},
+                        else None),
+                    "observe": (observed["launches"][k.name] if observed
+                                else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -2812,6 +3365,12 @@ def main(argv=None) -> int:
                 **{key: _step_summary(recs, call) for key, call in (
                     ("bf16_step", BF16_STEP_CALL),
                     ("cascade_step", CASCADE_STEP_CALL))},
+                # the component the observe phase's captures gave the
+                # kernel and its share of the captured steps' device time
+                **({f"observe_{point}": observed[key]["kernels"][k.name]
+                    for point, key in (("f32", "attribution"),
+                                       ("bf16", "bf16"))}
+                   if observed else {}),
                 "shapes": recs,
             })
         print(json.dumps({"kernels": out}), flush=True)
@@ -2859,6 +3418,17 @@ def main(argv=None) -> int:
                                      "predict_ms", "predict_launches")}))
     if variants is not None:
         log(f"[variants_reference] on {cards}: " + json.dumps(variants))
+    if observed is not None:
+        log(f"[observe] on {cards}: " + json.dumps({
+            "f32_step_by_component": observed["attribution"],
+            "bf16_step_by_component": observed["bf16"],
+            "captures": observed["captures"],
+            "profiler_windows": PROFILER_WINDOWS["n"],
+            "goodput": observed["goodput"], "wall_s": observed["wall_s"],
+            "healthz_503_after_s": observed["healthz_503_after_s"],
+            "mask_target_call": observed["mask_target_call"],
+            "profiler_windows_seen": observed["profiler_windows"],
+            "overhead": observed["overhead"]}))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

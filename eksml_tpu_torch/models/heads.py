@@ -16,6 +16,7 @@ from eksml_tpu_torch.models.rpn import (sigmoid_binary_cross_entropy,
                                         smooth_l1)
 from eksml_tpu_torch.ops.boxes import encode_boxes, pairwise_iou
 from eksml_tpu_torch.ops.sampling import sample_by_priority
+from eksml_tpu_torch.profiling.scopes import named_scope
 
 
 class BoxHead(nn.Module):
@@ -93,6 +94,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+@named_scope("sampling")
 def sample_proposal_targets(
         proposals: torch.Tensor, proposal_scores: torch.Tensor,
         gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
@@ -148,6 +150,7 @@ def sample_proposal_targets(
     return rois, labels, matched_sel, fg, take
 
 
+@named_scope("frcnn_loss")
 def box_head_losses(logits: torch.Tensor, deltas: torch.Tensor,
                     rois: torch.Tensor, roi_labels: torch.Tensor,
                     matched_gt: torch.Tensor, gt_boxes: torch.Tensor,
@@ -171,6 +174,7 @@ def box_head_losses(logits: torch.Tensor, deltas: torch.Tensor,
     return cls_loss, box_loss
 
 
+@named_scope("mask_loss")
 def mask_head_loss(mask_logits: torch.Tensor, roi_labels: torch.Tensor,
                    mask_targets: torch.Tensor,
                    fg_mask: torch.Tensor) -> torch.Tensor:

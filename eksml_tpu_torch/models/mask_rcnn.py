@@ -21,6 +21,14 @@ the FPN, each as a whole, under non-reentrant
 ``torch.utils.checkpoint``: their inner activations are recomputed in
 the backward, as ``nn.remat`` does).  ``TRAIN.PARAM_DTYPE`` is the
 trainer's (``train.cast_for_storage``).
+
+Profiler scopes: each top-level module runs inside a ``named_scope``
+range under its Flax name (``backbone``, ``fpn``, ``rpn``,
+``fastrcnn`` / ``cascade<i>``, ``maskrcnn``), beside the reference's
+``jax.named_scope`` names (``input_norm``, ``mask_targets`` here,
+the rest in ``rpn.py``, ``heads.py``, ``ops/``), so a
+``torch.profiler`` capture names every kernel by component
+(``profiling/attribution.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from eksml_tpu_torch.ops.anchors import (generate_fpn_anchors,
 from eksml_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from eksml_tpu_torch.ops.nms import class_aware_nms
 from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
+from eksml_tpu_torch.profiling.scopes import named_scope
 
 #: TRAIN.PRECISION / TRAIN.PARAM_DTYPE → torch dtype
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -194,12 +203,16 @@ class MaskRCNN(nn.Module):
         the backbone and the FPN each run under ``checkpoint``."""
         x = images
         if x.dtype == torch.uint8:
-            x = (x.float() - self.pixel_mean) / self.pixel_std
+            with named_scope("input_norm"):
+                x = (x.float() - self.pixel_mean) / self.pixel_std
         x = x.to(self.compute_dtype)
-        if self.remat and torch.is_grad_enabled():
-            c_feats = checkpoint(self.backbone, x, use_reentrant=False)
-            return checkpoint(self.fpn, c_feats, use_reentrant=False)
-        return self.fpn(self.backbone(x))
+        remat = self.remat and torch.is_grad_enabled()
+        with named_scope("backbone"):
+            c_feats = (checkpoint(self.backbone, x, use_reentrant=False)
+                       if remat else self.backbone(x))
+        with named_scope("fpn"):
+            return (checkpoint(self.fpn, c_feats, use_reentrant=False)
+                    if remat else self.fpn(c_feats))
 
     def _anchors(self, image_hw: Tuple[int, int], device
                  ) -> Tuple[torch.Tensor, ...]:
@@ -263,7 +276,8 @@ class MaskRCNN(nn.Module):
         if gt_crowd is None:
             gt_crowd = torch.zeros_like(gt_valid)
         feats = self._features(images)
-        rpn_logits, rpn_deltas = self.rpn(feats)
+        with named_scope("rpn"):
+            rpn_logits, rpn_deltas = self.rpn(feats)
         anchors = self._anchors((H, W), images.device)
         anchors_cat = torch.cat(anchors, dim=0)
         logits_cat = torch.cat(rpn_logits, dim=1)      # [B, A]
@@ -307,8 +321,9 @@ class MaskRCNN(nn.Module):
         else:
             # --- box head ---
             roi_feats = dispatch_roi_align(feats[:4], rois, strides, 7)
-            logits, deltas = self.fastrcnn(
-                roi_feats.reshape(b * s, 7, 7, -1))
+            with named_scope("fastrcnn"):
+                logits, deltas = self.fastrcnn(
+                    roi_feats.reshape(b * s, 7, 7, -1))
             frcnn_cls, frcnn_box = box_head_losses(
                 logits.reshape(b, s, -1),
                 deltas.reshape(b, s, self.num_classes, 4), rois,
@@ -325,8 +340,9 @@ class MaskRCNN(nn.Module):
             k = max(1, max_fg_proposals(s, self.frcnn_fg_ratio))
             rois_m = rois[:, :k].contiguous()
             mask_feats = dispatch_roi_align(feats[:4], rois_m, strides, ma)
-            mask_logits = self.maskrcnn(
-                mask_feats.reshape(b * k, ma, ma, -1))
+            with named_scope("maskrcnn"):
+                mask_logits = self.maskrcnn(
+                    mask_feats.reshape(b * k, ma, ma, -1))
             targets = self._mask_targets(rois_m, matched_gt[:, :k],
                                          gt_boxes, batch["gt_masks"])
             losses["mrcnn_loss"] = mask_head_loss(
@@ -353,7 +369,8 @@ class MaskRCNN(nn.Module):
         heads = self._cascade_heads()
         for i, head in enumerate(heads):
             roi_feats = dispatch_roi_align(feats[:4], rois, strides, 7)
-            logits, deltas = head(roi_feats.reshape(b * s, 7, 7, -1))
+            with named_scope(f"cascade{i}"):
+                logits, deltas = head(roi_feats.reshape(b * s, 7, 7, -1))
             deltas = deltas.reshape(b, s, 4)
             cls_l, box_l = cascade_stage_losses(
                 logits.reshape(b, s, -1), deltas, rois, roi_labels,
@@ -381,7 +398,8 @@ class MaskRCNN(nn.Module):
         heads = self._cascade_heads()
         for i, head in enumerate(heads):
             roi_feats = dispatch_roi_align(feats[:4], boxes, strides, 7)
-            logits, deltas = head(roi_feats.reshape(b * p, 7, 7, -1))
+            with named_scope(f"cascade{i}"):
+                logits, deltas = head(roi_feats.reshape(b * p, 7, 7, -1))
             probs = torch.softmax(logits.reshape(b, p, -1), dim=-1)
             probs_sum = probs if probs_sum is None else probs_sum + probs
             boxes = refine_boxes(boxes, deltas.reshape(b, p, 4),
@@ -389,6 +407,7 @@ class MaskRCNN(nn.Module):
         return boxes, probs_sum / len(heads)
 
     @torch.no_grad()
+    @named_scope("mask_targets")
     def _mask_targets(self, rois: torch.Tensor, matched_gt: torch.Tensor,
                       gt_boxes: torch.Tensor,
                       gt_masks: torch.Tensor) -> torch.Tensor:
@@ -427,7 +446,8 @@ class MaskRCNN(nn.Module):
         b, H, W, _ = images.shape
         image_hw = image_hw.float()
         feats = self._features(images)
-        rpn_logits, rpn_deltas = self.rpn(feats)
+        with named_scope("rpn"):
+            rpn_logits, rpn_deltas = self.rpn(feats)
         anchors = self._anchors((H, W), images.device)
         prop_boxes, prop_scores = self._proposals(
             rpn_logits, rpn_deltas, anchors, image_hw,
@@ -443,8 +463,9 @@ class MaskRCNN(nn.Module):
             cls = cls + 1
         else:
             roi_feats = dispatch_roi_align(feats[:4], prop_boxes, strides, 7)
-            logits, deltas = self.fastrcnn(
-                roi_feats.reshape(b * p, 7, 7, -1))
+            with named_scope("fastrcnn"):
+                logits, deltas = self.fastrcnn(
+                    roi_feats.reshape(b * p, 7, 7, -1))
             probs = torch.softmax(logits, dim=-1).reshape(b, p, -1)
             deltas = deltas.reshape(b, p, self.num_classes, 4)
 
@@ -471,8 +492,9 @@ class MaskRCNN(nn.Module):
             ma = mr // 2
             mask_feats = dispatch_roi_align(feats[:4], out_boxes.contiguous(),
                                             strides, ma)
-            mask_logits = self.maskrcnn(
-                mask_feats.reshape(b * d, ma, ma, -1))
+            with named_scope("maskrcnn"):
+                mask_logits = self.maskrcnn(
+                    mask_feats.reshape(b * d, ma, ma, -1))
             pick = classes.reshape(b * d, 1, 1, 1).expand(b * d, mr, mr, 1)
             sel_logits = torch.gather(mask_logits, 3, pick)
             out["masks"] = torch.sigmoid(sel_logits).reshape(b, d, mr, mr)

@@ -16,6 +16,7 @@ from eksml_tpu_torch.ops.boxes import (clip_boxes, decode_boxes,
                                       encode_boxes, pairwise_iou)
 from eksml_tpu_torch.ops.nms import nms_mask, top_k
 from eksml_tpu_torch.ops.sampling import sample_mask_by_priority
+from eksml_tpu_torch.profiling.scopes import named_scope
 
 
 class RPNHead(nn.Module):
@@ -48,6 +49,7 @@ class RPNHead(nn.Module):
         return logits, deltas
 
 
+@named_scope("rpn_nms")
 def generate_proposals(per_level_logits: Sequence[torch.Tensor],
                        per_level_deltas: Sequence[torch.Tensor],
                        per_level_anchors: Sequence[torch.Tensor],
@@ -93,6 +95,7 @@ def generate_proposals(per_level_logits: Sequence[torch.Tensor],
     return top_boxes, top_scores
 
 
+@named_scope("matching")
 def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                   gt_valid: torch.Tensor, pos_thresh: float,
                   neg_thresh: float, gt_crowd: torch.Tensor = None
@@ -142,6 +145,7 @@ def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     return labels, matched_gt
 
 
+@named_scope("sampling")
 def sample_anchors(labels: torch.Tensor, fg_priorities: torch.Tensor,
                    bg_priorities: torch.Tensor, batch_per_im: int,
                    fg_ratio: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -170,6 +174,7 @@ def smooth_l1(x: torch.Tensor, beta: float) -> torch.Tensor:
     return torch.where(ax < beta, 0.5 * x * x / beta, ax - 0.5 * beta)
 
 
+@named_scope("rpn_loss")
 def rpn_losses(logits: torch.Tensor, deltas: torch.Tensor,
                anchors: torch.Tensor, labels: torch.Tensor,
                matched_gt: torch.Tensor, gt_boxes: torch.Tensor,

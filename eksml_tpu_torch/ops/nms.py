@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from eksml_tpu_torch.ops.boxes import pairwise_iou
+from eksml_tpu_torch.profiling.scopes import named_scope
 
 NMS_TILE = 256
 
@@ -37,6 +38,8 @@ def _scatter_back(order: torch.Tensor, keep_sorted: torch.Tensor):
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
 
+# "nms" scope → the rpn-nms attribution component (SCOPE_RULES)
+@named_scope("nms")
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
              iou_threshold: float, tile: int = NMS_TILE) -> torch.Tensor:
     """Greedy NMS keep-mask for boxes ``[..., K, 4]`` (any order) →
@@ -109,6 +112,7 @@ def _topk_nms(boxes, scores, iou_threshold: float, max_outputs: int):
     return idx, top_scores, torch.isfinite(top_scores)
 
 
+@named_scope("nms")
 def class_aware_nms(boxes, scores, iou_threshold: float, max_outputs: int,
                     class_ids=None):
     """Per-class NMS via the coordinate-offset trick: each class's boxes

@@ -32,6 +32,7 @@ import torch
 
 from eksml_tpu_torch.ops.cuda.roi_align_kernel import (RoiAlignFunction,
                                                        RoiAlignKernels)
+from eksml_tpu_torch.profiling.scopes import named_scope
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -235,5 +236,7 @@ def dispatch_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     """The model's differentiable ROIAlign (predict and training alike):
     ``RoiAlignFunction`` over ``KERNELS``, whose wrappers route by
     device."""
-    return RoiAlignFunction.apply(KERNELS, rois, tuple(strides), out_size,
-                                  sampling_ratio, min_level, *feats)
+    with named_scope("roi_align"):
+        return RoiAlignFunction.apply(KERNELS, rois, tuple(strides),
+                                      out_size, sampling_ratio, min_level,
+                                      *feats)

@@ -1,7 +1,7 @@
 """Flight recorder: step-correlated structured events for post-mortems
-(the recorder and ``event()`` of ``eksml_tpu/telemetry/recorder.py``,
-over the port's registry; the reference's event sinks feed its goodput
-ledger, which waits for ROADMAP.md Queue 1 item 7).
+(the port of ``eksml_tpu/telemetry/recorder.py``, over the port's
+registry; its event sinks feed the goodput ledger,
+``telemetry/goodput.py``).
 
 A SIGTERM, a NaN rollback, a checkpoint walk-back or a reload rejection
 perturbs the metric stream but leaves no trace IN it.  The recorder is
@@ -22,7 +22,9 @@ Event kinds in use: ``run_start``, ``sigterm``, ``preempt_exit``,
 ``nan_observed``, ``rollback``, ``watchdog_dump``, ``checkpoint_save``,
 ``checkpoint_skipped``, ``checkpoint_restore``, ``checkpoint_fallback``,
 ``checkpoint_quarantined``, ``checkpoint_topology_changed``,
-``eval_start``/``eval_done``, ``serve_reload`` and
+``compile_start``/``compile_done`` (the first step's cuDNN autotune),
+``eval_start``/``eval_done``, ``profile_capture``/
+``profile_capture_done``, ``anomaly_detected``, ``serve_reload`` and
 ``serve_reload_rejected``.
 """
 
@@ -97,6 +99,14 @@ class FlightRecorder:
             "eksml_flight_events",
             "flight-recorder events by kind",
             labels={"kind": str(kind)}).inc()
+        # event sinks (goodput ledger): notified OUTSIDE the ring lock
+        # — a sink must never extend the recorder's critical section,
+        # and a broken one must never cost the incident event
+        for sink in list(_event_sinks):
+            try:
+                sink(entry)
+            except Exception:  # noqa: BLE001 — observability only
+                log.exception("flight-event sink failed for %r", kind)
         return entry
 
     def tail(self, n: Optional[int] = None) -> List[Dict]:
@@ -136,7 +146,26 @@ class FlightRecorder:
 # -- per-process default recorder -------------------------------------
 
 _recorder: Optional[FlightRecorder] = None
+# listeners on EVERY recorded event (any recorder instance):
+# ``fn(entry_dict)``.  The goodput ledger attributes watchdog-reported
+# hang seconds through this hook.
+_event_sinks: List = []
 _install_lock = threading.Lock()
+
+
+def add_event_sink(fn) -> None:
+    """Register an event listener (idempotent per function object)."""
+    with _install_lock:
+        if fn not in _event_sinks:
+            _event_sinks.append(fn)
+
+
+def remove_event_sink(fn) -> None:
+    with _install_lock:
+        try:
+            _event_sinks.remove(fn)
+        except ValueError:
+            pass
 
 
 def install(recorder: Optional[FlightRecorder]) -> Optional[FlightRecorder]:

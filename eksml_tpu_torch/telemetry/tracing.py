@@ -1,7 +1,28 @@
-"""Request-lifecycle spans (the span layer of
-``eksml_tpu/telemetry/tracing.py``): a bounded ring of Chrome-trace
-events that ``Tracer.flush`` writes as JSON.  Without an installed
-tracer :func:`complete_span` is a no-op."""
+"""Span tracing and profiler captures on request (the port of
+``eksml_tpu/telemetry/tracing.py``).
+
+- **Spans** (:func:`span` / :func:`traced` / :func:`complete_span`):
+  wall-clock intervals recorded into a bounded per-rank ring
+  (:class:`Tracer`), each carrying ``step``/``host`` attributes so it
+  joins against flight-recorder events and metric rows.  With no
+  tracer installed (or ``enabled=False``) the module-level API is a
+  no-op: it returns one shared null context manager and allocates
+  nothing.
+- **Trace files**: :meth:`Tracer.flush` writes the ring as
+  Chrome-trace JSON to ``<logdir>/trace-host<i>.json`` (``pid`` =
+  host, ``tid`` = thread), the format ``tools/trace_summary.py
+  --merge`` and the goodput ledger read.
+- **Captures on request** (:class:`ProfileTrigger`): a thread-safe
+  request box between the exporter's ``/debugz/profile?steps=N``
+  endpoint (or the anomaly detector) and the fit loop, which runs
+  ``torch.profiler`` over the requested steps; a cooldown and a
+  per-run budget keep a flapping alert from chaining captures.
+- **Anomaly trigger** (:class:`AnomalyDetector`): requests the same
+  capture when a rolling step-time p95 regression or a persistent
+  straggler survives K consecutive log intervals.
+
+Stdlib only, and it fails soft: tracing never takes down training.
+"""
 
 from __future__ import annotations
 
@@ -13,48 +34,153 @@ import sys
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional
+from functools import wraps
+from typing import Callable, Dict, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
 
 
-class Tracer:
-    """Bounded, thread-safe ring of Chrome-trace span events.  Timestamps
-    are wall-clock microseconds from ONE ``(time.time, perf_counter)``
-    epoch pair taken at construction: monotonic within the process."""
+def trace_path_for(logdir: Optional[str], host_id: int) -> Optional[str]:
+    """Per-host span trace file under the run dir (same contract as
+    the flight recorder's ``events-host<i>.jsonl``)."""
+    if not logdir:
+        return None
+    os.makedirs(logdir, exist_ok=True)
+    return os.path.join(logdir, f"trace-host{host_id}.json")
 
-    def __init__(self, capacity: int = 4096, path: Optional[str] = None):
+
+class _Span:
+    """One active span; records a complete ('X') event on exit."""
+
+    __slots__ = ("_tracer", "name", "step", "attrs", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 step: Optional[int], attrs: Optional[Dict]):
+        self._tracer = tracer
+        self.name = name
+        self.step = step
+        self.attrs = attrs
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._tracer._complete(self.name, self._t0, time.perf_counter(),
+                               self.step, self.attrs)
+
+
+class _NullSpan:
+    """Shared do-nothing span — the disabled-mode fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+    """Bounded, thread-safe ring of Chrome-trace span events.
+
+    Timestamps are wall-clock microseconds derived from ONE
+    ``(time.time, perf_counter)`` epoch pair taken at construction —
+    monotonic within the process, roughly wall-aligned across hosts
+    (the merge tool refines the alignment on step boundaries, so NTP
+    skew does not corrupt the cross-host timeline).
+    """
+
+    def __init__(self, capacity: int = 4096,
+                 path: Optional[str] = None, host_id: int = 0,
+                 enabled: bool = True):
+        self.capacity = max(16, int(capacity))
         self.path = path
+        self.host_id = int(host_id)
+        self.enabled = bool(enabled)
         self._lock = threading.Lock()
         self._ring: collections.deque = collections.deque(
-            maxlen=max(16, int(capacity)))
+            maxlen=self.capacity)
         self._epoch_wall_us = time.time() * 1e6
         self._epoch_perf = time.perf_counter()
+        self.spans_recorded = 0
+
+    # -- recording -----------------------------------------------------
+
+    def span(self, name: str, step: Optional[int] = None,
+             attrs: Optional[Dict] = None):
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, step, attrs)
+
+    def _ts_us(self, perf_t: float) -> float:
+        return self._epoch_wall_us + (perf_t - self._epoch_perf) * 1e6
 
     def _complete(self, name: str, t0: float, t1: float,
-                  attrs: Optional[Dict]) -> None:
+                  step: Optional[int], attrs: Optional[Dict]) -> None:
+        args: Dict = {"host": self.host_id}
+        if step is not None:
+            args["step"] = int(step)
+        if attrs:
+            args.update(attrs)
         ev = {"name": str(name), "ph": "X",
-              "ts": round(self._epoch_wall_us
-                          + (t0 - self._epoch_perf) * 1e6, 3),
+              "ts": round(self._ts_us(t0), 3),
               "dur": round((t1 - t0) * 1e6, 3),
-              "pid": 0,
+              "pid": self.host_id,
               "tid": threading.get_ident() % 2 ** 31,
-              "args": dict(attrs or {})}
+              "args": args}
         with self._lock:
             self._ring.append(ev)
+            self.spans_recorded += 1
+        # span sink (goodput ledger): notified OUTSIDE the ring lock —
+        # a sink must never extend this hot-path critical section, and
+        # it must never take down the traced code
+        sink = _span_sink
+        if sink is not None:
+            try:
+                sink(str(name), t1 - t0, step)
+            except Exception:  # noqa: BLE001 — observability only
+                log.exception("span sink failed for %r", name)
+
+    def instant(self, name: str, step: Optional[int] = None,
+                **attrs) -> None:
+        """Zero-duration marker event (capture start/stop etc.)."""
+        if not self.enabled:
+            return
+        args: Dict = {"host": self.host_id}
+        if step is not None:
+            args["step"] = int(step)
+        args.update(attrs)
+        ev = {"name": str(name), "ph": "i", "s": "g",
+              "ts": round(self._ts_us(time.perf_counter()), 3),
+              "pid": self.host_id,
+              "tid": threading.get_ident() % 2 ** 31,
+              "args": args}
+        with self._lock:
+            self._ring.append(ev)
+
+    # -- output --------------------------------------------------------
 
     def snapshot(self) -> List[Dict]:
         with self._lock:
             return list(self._ring)
 
     def flush(self, path: Optional[str] = None) -> Optional[str]:
-        """Write the ring as one Chrome-trace JSON document, atomically
-        (write-then-rename).  Never raises: a full disk must not take
-        down the server."""
+        """Write the ring (plus process metadata) as one Chrome-trace
+        JSON document.  Atomic (write-then-rename): a reader polling
+        for the file must never parse a torn write.  Never raises —
+        a full disk must not take down the step loop."""
         path = path or self.path
         if not path:
             return None
-        doc = {"traceEvents": self.snapshot(), "displayTimeUnit": "ms"}
+        events = self.snapshot()
+        meta = [{"name": "process_name", "ph": "M", "pid": self.host_id,
+                 "args": {"name": f"host{self.host_id}"}}]
+        doc = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
         try:
             tmp = path + ".tmp"
             with open(tmp, "w") as f:
@@ -66,9 +192,30 @@ class Tracer:
                         exc_info=True)
             return None
 
+    def close(self) -> None:
+        self.flush()
+
+
+# -- module-level installed tracer (same pattern as the recorder) ------
 
 _tracer: Optional[Tracer] = None
+# optional listener on completed spans: ``fn(name, dur_s, step)``.
+# The goodput ledger classifies run wall-clock through this hook
+# instead of adding its own hot-path instrumentation.  With no tracer
+# installed (tracing disabled) no spans complete and the sink never
+# fires — the ledger's documented coarse mode.
+_span_sink = None
 _install_lock = threading.Lock()
+
+
+def install_span_sink(fn) -> Optional[object]:
+    """Install (or with ``None``, remove) the span sink; returns the
+    previous one so callers can restore it (fit installs the goodput
+    meter's for the duration of the loop)."""
+    global _span_sink
+    with _install_lock:
+        prev, _span_sink = _span_sink, fn
+    return prev
 
 
 def install_tracer(tracer: Optional[Tracer]) -> Optional[Tracer]:
@@ -80,16 +227,242 @@ def install_tracer(tracer: Optional[Tracer]) -> Optional[Tracer]:
     return prev
 
 
-def complete_span(name: str, t0: float, t1: float, **attrs) -> None:
-    """Record an already-measured interval (``time.perf_counter``
-    endpoints) as a span.  No-op without an installed tracer."""
+def get_tracer() -> Optional[Tracer]:
+    return _tracer
+
+
+def span(name: str, step: Optional[int] = None,
+         attrs: Optional[Dict] = None):
+    """Context manager timing one named interval through the installed
+    tracer.  Without one (or with tracing disabled) this returns the
+    SHARED null span — no allocation, no lock, ~100 ns."""
     t = _tracer
-    if t is not None:
-        t._complete(name, t0, t1, attrs)
+    if t is None or not t.enabled:
+        return NULL_SPAN
+    return _Span(t, name, step, attrs)
+
+
+def complete_span(name: str, t0: float, t1: float,
+                  step: Optional[int] = None, **attrs) -> None:
+    """Record an already-measured interval (``time.perf_counter``
+    endpoints) as a span — for producer threads that time their work
+    anyway and must not hold a context manager across a blocking
+    queue put.  No-op without an installed tracer."""
+    t = _tracer
+    if t is None or not t.enabled:
+        return
+    t._complete(name, t0, t1, step, attrs or None)
+
+
+def traced(name: Optional[str] = None) -> Callable:
+    """Decorator form of :func:`span` (span name defaults to the
+    function's qualified name)."""
+    def deco(fn: Callable) -> Callable:
+        span_name = name or fn.__qualname__
+
+        @wraps(fn)
+        def wrapper(*a, **kw):
+            with span(span_name):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    return deco
+
+
+# -- on-demand profile capture ----------------------------------------
+
+
+class ProfileTrigger:
+    """Thread-safe request box between capture *requesters* (the
+    ``/debugz/profile`` endpoint, the anomaly detector) and the
+    capture *executor* (the fit loop, which owns ``torch.profiler``).
+
+    Guard rails — both enforced here so every requester shares them:
+
+    - ``cooldown_sec`` between captures (measured from capture end),
+      so a flapping anomaly cannot chain captures back to back;
+    - ``max_captures`` per process lifetime, so a long run cannot
+      slowly fill the shared filesystem with trace dumps.
+    """
+
+    def __init__(self, cooldown_sec: float = 300.0,
+                 max_captures: int = 3, default_steps: int = 3,
+                 max_steps: int = 50,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cooldown_sec = float(cooldown_sec)
+        self.max_captures = int(max_captures)
+        self.default_steps = int(default_steps)
+        self.max_steps = int(max_steps)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._pending: Optional[Dict] = None
+        self._active = False
+        self._last_end: Optional[float] = None
+        self.captures_started = 0
+        self.rejected = 0
+
+    def request(self, steps: Optional[int] = None,
+                reason: str = "manual") -> Tuple[bool, str]:
+        """Ask for a capture of ``steps`` post-request steps.  Returns
+        ``(accepted, detail)``; never raises."""
+        try:
+            n = int(steps) if steps else self.default_steps
+        except (TypeError, ValueError):
+            return self._reject(f"invalid steps value {steps!r}")
+        if n <= 0:
+            return self._reject(f"steps must be positive, got {n}")
+        n = min(n, self.max_steps)
+        with self._lock:
+            if self._pending is not None:
+                return self._reject_locked("a capture is already "
+                                           "pending")
+            if self._active:
+                return self._reject_locked("a capture is in progress")
+            if self.captures_started >= self.max_captures:
+                return self._reject_locked(
+                    f"max captures per run reached "
+                    f"({self.max_captures})")
+            now = self._clock()
+            if (self._last_end is not None
+                    and now - self._last_end < self.cooldown_sec):
+                wait = self.cooldown_sec - (now - self._last_end)
+                return self._reject_locked(
+                    f"cooldown: {wait:.0f}s until the next capture "
+                    "window")
+            self._pending = {"steps": n, "reason": str(reason),
+                             "requested_at": time.time()}
+            return True, f"accepted: {n} step(s) ({reason})"
+
+    def _reject(self, detail: str) -> Tuple[bool, str]:
+        with self._lock:
+            return self._reject_locked(detail)
+
+    def _reject_locked(self, detail: str) -> Tuple[bool, str]:
+        self.rejected += 1
+        return False, detail
+
+    def take(self) -> Optional[Dict]:
+        """Consume the pending request (the fit loop calls this at a
+        step boundary); marks a capture active."""
+        with self._lock:
+            req, self._pending = self._pending, None
+            if req is not None:
+                self._active = True
+                self.captures_started += 1
+            return req
+
+    def finish(self) -> None:
+        """Capture done — start the cooldown clock."""
+        with self._lock:
+            self._active = False
+            self._last_end = self._clock()
+
+    def status(self) -> Dict:
+        with self._lock:
+            return {
+                "pending": self._pending is not None,
+                "active": self._active,
+                "captures_started": self.captures_started,
+                "max_captures": self.max_captures,
+                "cooldown_sec": self.cooldown_sec,
+                "rejected": self.rejected,
+            }
+
+
+# -- anomaly detection -------------------------------------------------
+
+
+class AnomalyDetector:
+    """Turns the per-log-interval scalars the fit loop already has
+    into capture triggers.  Two independent signals, each requiring
+    ``k_intervals`` CONSECUTIVE anomalous log intervals (one blip is
+    noise; a persistent one is an incident):
+
+    - **step-time regression**: the interval's mean step time exceeds
+      ``p95_factor`` × the rolling p95 of the last ``window`` healthy
+      intervals (the baseline excludes the current observation and
+      stops absorbing samples while a streak is building, so a slow
+      regression cannot normalize itself).
+    - **persistent straggler**: the SAME host is ``hosts/lagging``
+      while the max/mean spread exceeds ``spread_factor`` (without
+      the spread gate, argmax over near-identical hosts is a random
+      host index and would "persist" spuriously at world size 1).
+    """
+
+    def __init__(self, k_intervals: int = 3, p95_factor: float = 1.5,
+                 spread_factor: float = 1.5, window: int = 32,
+                 min_history: int = 8):
+        self.k = max(1, int(k_intervals))
+        self.p95_factor = float(p95_factor)
+        self.spread_factor = float(spread_factor)
+        self.min_history = max(4, int(min_history))
+        self._history: collections.deque = collections.deque(
+            maxlen=max(self.min_history, int(window)))
+        self._slow_streak = 0
+        self._lag_host: Optional[int] = None
+        self._lag_streak = 0
+        self.fired = 0
+
+    @staticmethod
+    def _p95(values) -> float:
+        s = sorted(values)
+        idx = min(len(s) - 1, int(round(0.95 * (len(s) - 1))))
+        return s[idx]
+
+    def observe(self, step_time_ms: float,
+                lagging_host: Optional[int] = None,
+                spread_ratio: Optional[float] = None) -> Optional[str]:
+        """Feed one log interval; returns a reason string when an
+        anomaly has persisted ``k_intervals`` intervals, else None."""
+        reason = None
+        v = float(step_time_ms)
+
+        # signal 1: rolling p95 regression
+        if len(self._history) >= self.min_history:
+            baseline = self._p95(self._history)
+            if baseline > 0 and v > self.p95_factor * baseline:
+                self._slow_streak += 1
+            else:
+                self._slow_streak = 0
+        if self._slow_streak >= self.k:
+            reason = (f"step_time_p95_regression: {v:.0f}ms > "
+                      f"{self.p95_factor:.2f}x rolling p95 "
+                      f"{self._p95(self._history):.0f}ms for "
+                      f"{self._slow_streak} intervals")
+        # only healthy intervals feed the baseline — a building streak
+        # must not drag the p95 up underneath itself
+        if self._slow_streak == 0:
+            self._history.append(v)
+
+        # signal 2: persistent straggler
+        if (lagging_host is not None and spread_ratio is not None
+                and float(spread_ratio) > self.spread_factor):
+            h = int(lagging_host)
+            if h == self._lag_host:
+                self._lag_streak += 1
+            else:
+                self._lag_host, self._lag_streak = h, 1
+        else:
+            self._lag_host, self._lag_streak = None, 0
+        if reason is None and self._lag_streak >= self.k:
+            reason = (f"persistent_straggler: host {self._lag_host} "
+                      f"lagging {self._lag_streak} intervals "
+                      f"(spread {float(spread_ratio):.2f}x)")
+
+        if reason is not None:
+            self.fired += 1
+            self._slow_streak = 0
+            self._lag_host, self._lag_streak = None, 0
+        return reason
+
+
+# -- thread stacks (the /debugz/stacks payload) ------------------------
 
 
 def format_thread_stacks() -> str:
-    """All live threads' stacks as text (the hang watchdog's reports)."""
+    """All live threads' stacks as text — the same shape the hang
+    watchdog writes to its reports, served on demand."""
     frames = sys._current_frames()
     threads = {t.ident: t for t in threading.enumerate()}
     lines = [f"{len(frames)} thread(s) at "
@@ -100,7 +473,7 @@ def format_thread_stacks() -> str:
         daemon = getattr(t, "daemon", "?")
         lines.append(f"--- thread {name} (ident={ident}, "
                      f"daemon={daemon}) ---")
-        lines.extend(line.rstrip("\n")
-                     for line in traceback.format_stack(frame))
+        lines.extend(l.rstrip("\n")
+                     for l in traceback.format_stack(frame))
         lines.append("")
     return "\n".join(lines)

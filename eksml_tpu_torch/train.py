@@ -37,12 +37,22 @@ losses are per-image means over the batch, so with equal slices the
 wrappers' gradient average is the global batch's gradient, and the
 logged losses and ``grad_norm`` are averaged across ranks before
 anything reads them.
+
+Observability (``config.TELEMETRY``, as ``eksml_tpu/train.py``): the
+fit loop serves ``/metrics``, ``/healthz`` (503 past
+``HEALTHZ_STALE_SEC`` without a step), ``/debugz/profile`` and
+``/debugz/stacks`` from local rank 0 of each host, times its phases as
+spans (``TRACING``), banks the goodput ledger (``GOODPUT``) and takes
+``torch.profiler`` captures on request (``--profile N``,
+``/debugz/profile``, the anomaly detector), each written with its
+attribution by model component under ``<logdir>/profile``.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import logging
 import math
 import os
@@ -62,11 +72,14 @@ from eksml_tpu_torch.parallel.collectives import (assert_replicas_in_sync,
                                                   warm_mesh_collectives)
 from eksml_tpu_torch.parallel.distributed import (barrier, broadcast_object,
                                                   is_coordinator,
+                                                  local_rank,
                                                   process_count,
                                                   process_index)
 from eksml_tpu_torch.parallel.sharding import (ShardingPlan,
                                                publish_state_byte_gauges)
 from eksml_tpu_torch.parallel.topology import current_topology
+from eksml_tpu_torch.profiling.memory import publish_hbm_gauges
+from eksml_tpu_torch.profiling.scopes import named_scope
 from eksml_tpu_torch.resilience import (ROLLBACK, DivergenceSentinel,
                                         HangWatchdog, PreemptedError,
                                         PreemptionHandler)
@@ -77,8 +90,11 @@ from eksml_tpu_torch.utils.checkpoint import (full_optimizer_state,
 
 log = logging.getLogger("eksml_tpu_torch.train")
 
-#: where the options this slice leaves out are planned (ROADMAP.md)
-PROFILE_ITEM = "ROADMAP.md Queue 1, item 7 (observability)"
+#: one-element kernels a capture on the card launches right after the
+#: profiler starts: late in a long process a torch.profiler session
+#: loses a varying count of its first device records (16 to 69 seen,
+#: PERF.md §6), which cost the captured steps their first kernels
+CAPTURE_PRIMERS = 256
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -229,16 +245,17 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             # and it still decays and carries momentum
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        norm = global_norm(grads, norm_group)
-        if gradient_clip > 0:
-            clip_by_global_norm_(grads, gradient_clip, norm)
-        lr = sched(step_index)
-        if lr_dtype != torch.float32:
-            lr = float(torch.tensor(lr, dtype=lr_dtype))
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        with named_scope("optimizer"):
+            grads = [p.grad for p in params]
+            norm = global_norm(grads, norm_group)
+            if gradient_clip > 0:
+                clip_by_global_norm_(grads, gradient_clip, norm)
+            lr = sched(step_index)
+            if lr_dtype != torch.float32:
+                lr = float(torch.tensor(lr, dtype=lr_dtype))
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
         values = {k: v.detach() for k, v in losses.items()}
         values["grad_norm"] = norm.detach().float()
         if dist.is_initialized() and dist.get_world_size() > 1:
@@ -253,6 +270,82 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
+def _telemetry_knobs(cfg) -> Dict[str, Any]:
+    from eksml_tpu_torch.config import TELEMETRY_DEFAULTS, knobs_with_defaults
+
+    return knobs_with_defaults(getattr(cfg, "TELEMETRY", None),
+                               TELEMETRY_DEFAULTS)
+
+
+def _tracing_knobs(cfg) -> Dict[str, Any]:
+    from eksml_tpu_torch.config import (TELEMETRY_TRACING_DEFAULTS,
+                                        knobs_with_defaults)
+
+    return knobs_with_defaults(
+        getattr(getattr(cfg, "TELEMETRY", None), "TRACING", None),
+        TELEMETRY_TRACING_DEFAULTS)
+
+
+def _goodput_knobs(cfg) -> Dict[str, Any]:
+    from eksml_tpu_torch.config import (TELEMETRY_GOODPUT_DEFAULTS,
+                                        knobs_with_defaults)
+
+    return knobs_with_defaults(
+        getattr(getattr(cfg, "TELEMETRY", None), "GOODPUT", None),
+        TELEMETRY_GOODPUT_DEFAULTS)
+
+
+def _preregister_core_metrics(registry) -> None:
+    """Create the always-present series (the reference's set), so the
+    FIRST scrape of a healthy run already shows every resilience, data,
+    checkpoint and goodput series at 0: dashboards and alerts key on
+    existence, not just increments."""
+    for name, help_text in (
+        ("eksml_resilience_preemptions",
+         "SIGTERM preemption signals observed"),
+        ("eksml_resilience_rollbacks",
+         "divergence rollbacks to a previous checkpoint"),
+        ("eksml_resilience_nonfinite_losses",
+         "non-finite total_loss observations (divergence sentinel)"),
+        ("eksml_resilience_watchdog_fires",
+         "hang-watchdog deadline expiries (stack reports written)"),
+        ("eksml_data_io_recoveries",
+         "transient I/O errors absorbed by bounded retry"),
+        ("eksml_data_pool_rebuilds",
+         "decode process-pool self-heals after a worker death"),
+        ("eksml_checkpoint_saves", "checkpoint commits started"),
+        ("eksml_checkpoint_restores", "checkpoint restores completed"),
+        ("eksml_checkpoint_fallbacks",
+         "checkpoint integrity walk-backs to an earlier step"),
+        ("eksml_checkpoint_restore_resharded",
+         "checkpoint restores resharded across a topology change"),
+    ):
+        registry.counter(name, help_text)
+    # the quarantine census is labeled by fault kind where it increments
+    # (data/robust.py): preregister the same series
+    for kind in ("decode", "missing", "io_exhausted"):
+        registry.counter(
+            "eksml_data_quarantined_records",
+            "distinct records quarantined by the data-ingest layer",
+            labels={"kind": kind})
+    # the goodput ledger: every badput bucket, the ratio gauge and the
+    # phase events it reads exist before the first increment
+    from eksml_tpu_torch.telemetry import goodput as goodput_mod
+
+    registry.gauge(goodput_mod.RATIO_GAUGE,
+                   "fraction of run wall-clock spent in train steps")
+    registry.counter(goodput_mod.GOODPUT_COUNTER,
+                     "training wall-clock seconds (the goodput "
+                     "bucket)")
+    for bucket in goodput_mod.BADPUT_BUCKETS:
+        registry.counter(goodput_mod.BADPUT_COUNTER,
+                         "non-training wall-clock seconds by bucket",
+                         labels={"bucket": bucket})
+    for kind in ("compile_start", "compile_done", "eval_start",
+                 "eval_done"):
+        registry.counter("eksml_flight_events",
+                         "flight-recorder events by kind",
+                         labels={"kind": kind})
 
 
 def _config_digest(cfg) -> str:
@@ -294,9 +387,10 @@ class Trainer:
     ``TRAIN.SYNC_CHECK_PERIOD`` runs the replica sync check under
     ``replicated``.
 
-    Not read yet: ``TELEMETRY.*`` beyond the flight recorder, the host
-    aggregation and the ``TRACING``/goodput/exporter parts (ROADMAP.md
-    Queue 1 item 7)."""
+    ``TELEMETRY.ENABLED`` installs one flight recorder per rank and,
+    with ``TELEMETRY.TRACING.ENABLED``, one span tracer per rank
+    (``trace-host<rank>.json``); :meth:`fit` runs the rest of the
+    telemetry layer."""
 
     def __init__(self, cfg, logdir: str, device="cuda", eval_fn=None):
         self.cfg = cfg
@@ -330,11 +424,19 @@ class Trainer:
         run_info = {"config_digest": _config_digest(cfg)}
         self.writer = (MetricWriter(logdir, run_info=run_info)
                        if is_coordinator() else None)
+        self._telemetry = _telemetry_knobs(cfg)
+        self._tracing = _tracing_knobs(cfg)
+        self._goodput_cfg = _goodput_knobs(cfg)
+        # the live goodput meter: set only while fit runs
+        self._goodput = None
+        #: what the newest profiler capture wrote (``_finish_capture``)
+        self.last_capture: Optional[Dict[str, Any]] = None
         self.recorder = None
-        if cfg.TELEMETRY.ENABLED:
+        self.tracer = None
+        if self._telemetry["ENABLED"]:
             # one flight recorder per rank: incidents are per-rank facts
             prev = telemetry.install(telemetry.FlightRecorder(
-                capacity=int(cfg.TELEMETRY.FLIGHT_RECORDER_EVENTS),
+                capacity=int(self._telemetry["FLIGHT_RECORDER_EVENTS"]),
                 path=telemetry.events_path_for(logdir, self.rank),
                 host_id=self.rank))
             if prev is not None:
@@ -342,6 +444,15 @@ class Trainer:
             self.recorder = telemetry.recorder.get()
             telemetry.event("run_start", pid=os.getpid(),
                             host_count=self.world, **run_info)
+            if self._tracing["ENABLED"]:
+                # one span tracer per rank too: trace-host<rank>.json
+                prev_t = telemetry.install_tracer(telemetry.Tracer(
+                    capacity=int(self._tracing["RING_EVENTS"]),
+                    path=telemetry.trace_path_for(logdir, self.rank),
+                    host_id=self.rank))
+                if prev_t is not None:
+                    prev_t.flush()
+                self.tracer = telemetry.get_tracer()
         if is_coordinator():
             log.info("sharding plan: %s over mesh %s", self.plan.describe(),
                      dict(zip(self.plan.mesh_axes, self.plan.mesh_shape)))
@@ -530,7 +641,8 @@ class Trainer:
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]],
             total_steps: int, start_step: int = 0,
-            data_health=None) -> List[Dict[str, float]]:
+            data_health=None, profile_steps: int = 0
+            ) -> List[Dict[str, float]]:
         """Train up to ``total_steps`` over the host ``batches``.
 
         With live state (:meth:`init_state`, a previous ``fit``) the run
@@ -558,6 +670,30 @@ class Trainer:
         and its report joins the watchdog's hang dump, so input
         starvation reads as a stalled data pipeline, not a generic hang.
 
+        Telemetry (``TELEMETRY.ENABLED``, as the reference): the core
+        series are preregistered; local rank 0 serves ``/metrics``,
+        ``/healthz``, ``/debugz/profile`` and ``/debugz/stacks`` on
+        ``TELEMETRY.PORT`` for the loop's lifetime (the port it bound in
+        ``<logdir>/telemetry-host<rank>.port``); the loop's phases are
+        spans (``data_wait``, ``globalize_batch`` — the host-to-device
+        copy —, ``train_step``, ``host_metrics``, ``host_aggregate``,
+        ``checkpoint_save``/``_restore``, ``eval``); the first step is
+        the ``compile`` window (cuDNN's autotune); with
+        ``TELEMETRY.GOODPUT.ENABLED`` the goodput meter classifies the
+        loop's wall time, recovers the downtime since the previous
+        segment and banks ``goodput-host<rank>.jsonl`` at every log step
+        and at exit.  ``train_step`` times the host's dispatch: the card
+        runs behind it, and the step's own syncs (NMS) and the log step's
+        loss read are where the host waits.
+
+        ``profile_steps``: on global rank 0, a ``torch.profiler`` capture
+        of that many steps after the first (``--profile N``).  The same
+        executor takes ``/debugz/profile`` requests and the anomaly
+        detector's (``TELEMETRY.TRACING``), under the trigger's cooldown
+        and budget: each capture writes its Chrome trace and
+        ``attribution.json`` (device time by model component) under
+        ``<logdir>/profile`` (:meth:`_finish_capture`).
+
         Under a process group every rank runs this loop over its own
         ``batches`` (its shard); ``TRAIN.SYNC_CHECK_PERIOD`` checks that
         the replicas agree (``replicated`` only: under ``fsdp`` the shards
@@ -571,7 +707,8 @@ class Trainer:
         ``images_per_sec`` (the global batch), ``step_time_ms`` (wall
         time per step since the previous row, ending on the device's
         results), ``data/*`` (above), with ``TELEMETRY.AGGREGATE_HOSTS``
-        the ranks' ``hosts/*`` min/max/mean and straggler, and ``step``."""
+        the ranks' ``hosts/*`` min/max/mean and straggler, with goodput
+        ``goodput/ratio``, and ``step``."""
         cfg = self.cfg
         res = cfg.RESILIENCE
         sync_every = int(cfg.TRAIN.SYNC_CHECK_PERIOD)
@@ -580,8 +717,8 @@ class Trainer:
                         "check assumes replicated params (sharding strategy "
                         "%r)", self.plan.strategy)
             sync_every = 0
-        aggregate = bool(cfg.TELEMETRY.ENABLED
-                         and cfg.TELEMETRY.AGGREGATE_HOSTS)
+        tele = self._telemetry
+        aggregate = bool(tele["ENABLED"] and tele["AGGREGATE_HOSTS"])
         steps_per_epoch = int(cfg.TRAIN.STEPS_PER_EPOCH)
         ckpt_every = max(1, int(cfg.TRAIN.CHECKPOINT_PERIOD)) * steps_per_epoch
         eval_every = max(1, int(cfg.TRAIN.EVAL_PERIOD)) * steps_per_epoch
@@ -600,12 +737,55 @@ class Trainer:
             if self.recorder is not None:
                 watchdog.add_report_provider("flight recorder",
                                              self.recorder.report)
+        registry = telemetry.default_registry()
+        _preregister_core_metrics(registry)
         if data_health is not None:
-            data_health.register_gauges(telemetry.default_registry())
+            data_health.register_gauges(registry)
+        # /healthz liveness: seconds since the loop last made progress (a
+        # step, a restore, a checkpoint save, an eval, a rollback); past
+        # HEALTHZ_STALE_SEC the probe reads 503.  The bound must cover the
+        # longest legitimate phase: the first step's autotune, one eval.
+        health_state = {"step": step if step is not None else start_step,
+                        "total_steps": total_steps}
+        health_clock = {"last_step": time.monotonic()}
+
+        def _progress() -> None:
+            health_clock["last_step"] = time.monotonic()
+
+        def _health() -> Dict[str, Any]:
+            out = dict(health_state)
+            out["seconds_since_last_step"] = round(
+                time.monotonic() - health_clock["last_step"], 1)
+            return out
+
+        # captures on request: ONE trigger for /debugz/profile and the
+        # anomaly detector; --profile takes the same executor
+        profile_trigger = detector = None
+        if tele["ENABLED"]:
+            profile_trigger = telemetry.ProfileTrigger(
+                cooldown_sec=float(self._tracing["PROFILE_COOLDOWN_SEC"]),
+                max_captures=int(self._tracing["MAX_CAPTURES_PER_RUN"]),
+                default_steps=int(self._tracing["PROFILE_STEPS"]))
+            # automatic captures ride the tracing knob (off in the charts)
+            if self._tracing["ENABLED"] and self._tracing["ANOMALY_TRIGGER"]:
+                detector = telemetry.AnomalyDetector(
+                    k_intervals=int(self._tracing["ANOMALY_INTERVALS"]),
+                    p95_factor=float(self._tracing["ANOMALY_P95_FACTOR"]),
+                    spread_factor=float(
+                        self._tracing["ANOMALY_SPREAD_FACTOR"]))
+        # a distinct family from the eksml_train_step_time_ms gauge the
+        # MetricWriter mirror creates: one name, one type
+        step_time_hist = registry.histogram(
+            "eksml_train_step_duration_ms",
+            "wall time per training step (log-interval mean)")
         sentinel = DivergenceSentinel(patience=res.NAN_PATIENCE,
                                       max_rollbacks=res.MAX_ROLLBACKS)
         nan_injected = False
         first_call = True
+        capture = None      # the in-flight profiler capture
+        exporter = None
+        goodput_bank_path = None
+        prev_span_sink = None
         prefetcher = None
         source = batches
         if cfg.TRAIN.PREFETCH_TO_DEVICE:
@@ -616,32 +796,100 @@ class Trainer:
             source = prefetcher
         logged: List[Dict[str, float]] = []
         t_last, steps_since_log = time.perf_counter(), 0
+        if self.tracer is not None:
+            # (re)installed for THIS fit; the finally uninstalls it
+            telemetry.install_tracer(self.tracer)
         try:
+            if tele["ENABLED"] and self._goodput_cfg["ENABLED"]:
+                down_s, seg_start = telemetry.recover_downtime(
+                    self.logdir, self.rank)
+                meter = telemetry.GoodputMeter(
+                    fine=self.tracer is not None,
+                    segment_start_wall=seg_start)
+                if down_s > 0:
+                    meter.credit("downtime", down_s)
+                    log.info("goodput: recovered %.1fs downtime since the "
+                             "previous segment", down_s)
+                # assigned before the sinks install: the finally removes
+                # them after a partial set-up too
+                self._goodput = meter
+                prev_span_sink = telemetry.install_span_sink(meter.on_span)
+                telemetry.add_event_sink(meter.on_event)
+                if self._goodput_cfg["BANK"]:
+                    goodput_bank_path = telemetry.goodput_path_for(
+                        self.logdir, self.rank)
+            if tele["ENABLED"] and local_rank() == 0:
+                # one exporter per pod: the ranks of a host step in
+                # lockstep, and only local rank 0 tries the pod's port
+                exporter = telemetry.TelemetryExporter(
+                    port=int(tele["PORT"]), health_fn=_health,
+                    port_file=os.path.join(
+                        self.logdir, f"telemetry-host{self.rank}.port"),
+                    profile_trigger=profile_trigger,
+                    stale_after_sec=float(tele["HEALTHZ_STALE_SEC"]),
+                ).start()
+            elif not tele["ENABLED"] and float(tele["HEALTHZ_STALE_SEC"]) > 0:
+                log.warning(
+                    "TELEMETRY.HEALTHZ_STALE_SEC=%s is set but "
+                    "TELEMETRY.ENABLED=False: /healthz will NOT be served — "
+                    "if the chart rendered a livenessProbe "
+                    "(healthz_stale_seconds > 0) kubelet will restart this "
+                    "pod in a loop. Set healthz_stale_seconds=0 when "
+                    "disabling telemetry.", tele["HEALTHZ_STALE_SEC"])
             source_iter = iter(source)
             while True:
-                batch = next(source_iter, None)
+                # input spans are tagged with the step they feed (unknown
+                # until the restore below has run)
+                feeds = step + 1 if step is not None else None
+                with telemetry.span("data_wait", step=feeds):
+                    batch = next(source_iter, None)
                 if batch is None:
                     break
                 if watchdog:
                     watchdog.beat("to_device", step)
-                if prefetcher is None:
-                    batch = self._to_device(batch)
+                with telemetry.span("globalize_batch", step=feeds):
+                    if prefetcher is None:
+                        batch = self._to_device(batch)
                 if step is None:
+                    t_restore = time.perf_counter()
                     step = self.restore_or_init()
+                    _progress()     # a restore is not a hang
+                    if self._goodput is not None and step > 0:
+                        self._goodput.credit(
+                            "checkpoint_restore",
+                            time.perf_counter() - t_restore,
+                            coarse_only=True)
+                    health_state["step"] = step
                     if step >= total_steps:
                         break
                 if watchdog:
                     watchdog.beat("train_step", step + 1)
-                metrics = self._step(batch, self._priorities(batch, step),
-                                     step)
-                if watchdog and first_call:
-                    # the first step ran cuDNN's autotune; from here the
-                    # steady-state deadline applies
-                    watchdog.end_compile_headroom()
+                if first_call:
+                    # the first step runs cuDNN's autotune: the goodput
+                    # meter books it as compile, not as goodput
+                    telemetry.event("compile_start", step=step + 1)
+                    t_compile = time.perf_counter()
+                    if self._goodput is not None:
+                        self._goodput.begin_compile()
+                # host-side dispatch: the card runs behind it
+                with telemetry.span("train_step", step=step + 1):
+                    metrics = self._step(batch, self._priorities(batch, step),
+                                         step)
+                if first_call:
+                    if watchdog:
+                        # from here the steady-state deadline applies
+                        watchdog.end_compile_headroom()
+                    compile_s = time.perf_counter() - t_compile
+                    telemetry.event("compile_done", step=step + 1,
+                                    compile_ms=round(compile_s * 1e3, 1))
+                    if self._goodput is not None:
+                        self._goodput.end_compile(compile_s)
                 first_call = False
                 step += 1
                 self.step = step
                 steps_since_log += 1
+                health_state["step"] = step
+                _progress()
 
                 if (res.FAULT_INJECT_NAN_STEP and not nan_injected
                         and step == res.FAULT_INJECT_NAN_STEP):
@@ -655,6 +903,25 @@ class Trainer:
                             if t.is_floating_point():
                                 t.mul_(float("nan"))
 
+                # profiler captures: start and stop at step boundaries
+                if capture is None:
+                    req = None
+                    if profile_steps and self.rank == 0:
+                        # --profile: global rank 0, after the first step,
+                        # outside the trigger's guard rails
+                        req = {"steps": profile_steps, "reason": "cli",
+                               "from_trigger": False}
+                        profile_steps = 0
+                    elif profile_trigger is not None:
+                        req = profile_trigger.take()
+                        if req is not None:
+                            req["from_trigger"] = True
+                    if req is not None:
+                        capture = self._start_capture(req, step)
+                elif step >= capture["until"]:
+                    capture = self._finish_capture(capture, profile_trigger,
+                                                   step)
+
                 log_step = step % log_period == 0 or step == total_steps
                 ckpt_step = step % ckpt_every == 0 or step == total_steps
                 period = int(res.NAN_CHECK_PERIOD)
@@ -663,21 +930,31 @@ class Trainer:
                     action = sentinel.observe(
                         step, float(metrics["total_loss"]))
                     if action == ROLLBACK:
+                        t_rb = time.perf_counter()
                         good = self._rollback(sentinel, step, watchdog)
+                        if self._goodput is not None:
+                            self._goodput.credit(
+                                "checkpoint_restore",
+                                time.perf_counter() - t_rb, coarse_only=True)
+                        _progress()     # recovery, not a hang
                         if prefetcher is not None:
                             prefetcher.extend(step - good)
                         step = good
+                        health_state["step"] = step
                         t_last, steps_since_log = time.perf_counter(), 0
                         continue
 
                 if log_step:
-                    row = {k: float(v) for k, v in metrics.items()}
+                    # where the host waits for the card on log steps
+                    with telemetry.span("host_metrics", step=step):
+                        row = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()
                     dt = max(now - t_last, 1e-9)
                     row["images_per_sec"] = (batch["images"].shape[0]
                                              * self.world * steps_since_log
                                              / dt)
                     row["step_time_ms"] = dt * 1e3 / max(1, steps_since_log)
+                    step_time_hist.observe(row["step_time_ms"])
                     if data_health is not None:
                         row.update({f"data/{k}": float(v) for k, v
                                     in data_health.scalars().items()})
@@ -685,14 +962,25 @@ class Trainer:
                         row["data/prefetch_wait_ms"] = \
                             prefetcher.wait_ms_ewma or 0.0
                     t_last, steps_since_log = now, 0
+                    agg = None
                     if aggregate:
                         # a collective: every rank reaches this log step
                         hv = {k: row.get(f"data/{k}", 0.0)
                               for k in telemetry.HOST_AGG_KEYS}
                         hv["step_time_ms"] = row["step_time_ms"]
-                        agg = telemetry.aggregate_host_scalars(hv)
-                        telemetry.publish_aggregates(agg)
+                        with telemetry.span("host_aggregate", step=step):
+                            agg = telemetry.aggregate_host_scalars(hv)
+                        telemetry.publish_aggregates(agg, registry)
                         row.update(agg)
+                    if detector is not None:
+                        self._observe_anomaly(detector, profile_trigger,
+                                              row["step_time_ms"], agg, step)
+                    if self._goodput is not None:
+                        snap = self._goodput.publish(registry, steps=step)
+                        row["goodput/ratio"] = snap["goodput_ratio"]
+                        if goodput_bank_path:
+                            self._goodput.bank(goodput_bank_path, steps=step)
+                    publish_hbm_gauges(self.device, registry)
                     if self.writer:
                         self.writer.write_scalars(step, row)
                     log.info("step %d/%d loss=%.4f (%.2f img/s, %.1f ms)",
@@ -715,16 +1003,24 @@ class Trainer:
                     else:
                         if watchdog:
                             watchdog.beat("checkpoint_save", step)
-                        if (self.ckpt.save(step, self.checkpoint_state())
-                                and self.writer):
-                            self.writer.write_scalars(step, {
-                                "checkpoint_save_ms":
-                                    self.ckpt.last_save["blocking_ms"]})
+                        if self.ckpt.save(step, self.checkpoint_state()):
+                            save_ms = self.ckpt.last_save["blocking_ms"]
+                            if self.writer:
+                                self.writer.write_scalars(step, {
+                                    "checkpoint_save_ms": save_ms})
+                            if self._goodput is not None:
+                                # the blocking part only: the background
+                                # write overlaps training
+                                self._goodput.credit(
+                                    "checkpoint_save", save_ms / 1e3,
+                                    coarse_only=True)
+                        _progress()     # a slow commit is not a hang
                 if self.eval_fn and (step % eval_every == 0
                                      or step == total_steps):
                     if watchdog:
                         watchdog.beat("eval", step)
                     self._run_eval(step)
+                    _progress()         # an eval pass is not a hang
 
                 if preempt is not None and preempt.should_checkpoint(
                         step, res.PREEMPT_SYNC_PERIOD or log_period):
@@ -734,12 +1030,36 @@ class Trainer:
                 if watchdog:
                     watchdog.beat("next_batch", step)
         finally:
+            if capture is not None:
+                # the run ended inside the capture: close it so it lands
+                self._finish_capture(capture, profile_trigger, step,
+                                     truncated=True)
+            if self._goodput is not None:
+                # the segment's final ledger row, on every exit path
+                try:
+                    self._goodput.publish(registry, steps=step)
+                    if goodput_bank_path:
+                        self._goodput.bank(goodput_bank_path, steps=step,
+                                           final=True)
+                except Exception:  # noqa: BLE001 — observability only
+                    log.exception("final goodput snapshot failed")
+                telemetry.remove_event_sink(self._goodput.on_event)
+                telemetry.install_span_sink(prev_span_sink)
+                self._goodput = None
+            if self.tracer is not None:
+                self.tracer.flush()
+                # later spans in this process must not land in this run
+                if telemetry.get_tracer() is self.tracer:
+                    telemetry.install_tracer(None)
             if watchdog:
                 watchdog.stop()
             if preempt is not None:
                 preempt.uninstall()
             if prefetcher is not None:
                 prefetcher.close()
+            if exporter is not None:
+                # the endpoint dies with the loop it describes
+                exporter.stop()
             # land the background write and the buffered rows; a failure
             # here is swallowed only while another exception propagates
             propagating = sys.exc_info()[0] is not None
@@ -754,6 +1074,135 @@ class Trainer:
                               "shutdown failed (keeping the original "
                               "exception)")
         return logged
+
+    def _observe_anomaly(self, detector, trigger, step_time_ms: float,
+                         agg: Optional[Dict[str, float]], step: int) -> None:
+        """Feed one log interval to the anomaly detector; a persistent
+        step-time regression or straggler requests the same guarded
+        capture ``/debugz/profile`` uses.  ``agg`` comes off a
+        collective, so every rank requests at the same step."""
+        lag = spread = None
+        if agg is not None:
+            mean = agg.get("hosts/step_time_ms_mean", 0.0)
+            if mean > 0:
+                lag = agg.get("hosts/lagging")
+                spread = agg.get("hosts/step_time_ms_max", 0.0) / mean
+        reason = detector.observe(step_time_ms, lagging_host=lag,
+                                  spread_ratio=spread)
+        if reason is None or trigger is None:
+            return
+        ok, detail = trigger.request(
+            steps=int(self._tracing["PROFILE_STEPS"]),
+            reason=f"anomaly: {reason}")
+        log.warning("telemetry anomaly at step %d: %s — profile capture %s "
+                    "(%s)", step, reason, "accepted" if ok else "rejected",
+                    detail)
+        telemetry.event("anomaly_detected", step=step, reason=reason,
+                        capture="accepted" if ok else detail)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _start_capture(self, req: Dict, step: int) -> Dict:
+        """Begin a bounded ``torch.profiler`` capture (CPU and, on a
+        card, CUDA activity) after step ``step``, with a span-ring
+        marker.  A profiler that fails to start degrades to the span
+        capture alone: a capture never takes down training."""
+        # the trace covers whole steps: the card finishes the queued
+        # work first (once per capture, never per step)
+        self._sync()
+        prof = None
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+            if self.device.type == "cuda":
+                primer = torch.zeros(1, device=self.device)
+                for _ in range(CAPTURE_PRIMERS):
+                    primer.add_(1)
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            log.warning("torch.profiler capture failed to start — "
+                        "continuing with span capture only", exc_info=True)
+            prof = None
+        reason = str(req.get("reason", "?"))
+        if self.tracer is not None:
+            self.tracer.instant("profile_capture_start", step=step,
+                                reason=reason)
+        telemetry.event("profile_capture", step=step, reason=reason,
+                        steps=int(req["steps"]), profiler=prof is not None)
+        log.info("profile capture started after step %d (%s): %d step(s) "
+                 "into %s/profile", step, reason, int(req["steps"]),
+                 self.logdir)
+        return {"start": step, "until": step + int(req["steps"]),
+                "profiler": prof, "reason": reason,
+                "from_trigger": bool(req.get("from_trigger", False))}
+
+    def _finish_capture(self, capture: Dict, trigger, step: int,
+                        truncated: bool = False) -> None:
+        """Close a capture: stop the profiler, write its Chrome trace
+        (``profile/trace-step<first>-host<rank>.json``) and its
+        attribution by model component (``profile/attribution.json`` on
+        rank 0, ``attribution-host<rank>.json`` elsewhere;
+        :func:`~eksml_tpu_torch.profiling.write_attribution_artifact`),
+        flush the span ring and start the trigger's cooldown.  Records
+        what it wrote in :attr:`last_capture` and returns None (the new
+        capture state)."""
+        prof = capture["profiler"]
+        done = {"start_step": capture["start"], "end_step": step,
+                "reason": capture["reason"], "truncated": bool(truncated),
+                "profiler": prof is not None, "trace": None,
+                "attribution": None, "table": None}
+        if prof is not None:
+            try:
+                self._sync()
+                prof.stop()
+                out = os.path.join(self.logdir, "profile")
+                os.makedirs(out, exist_ok=True)
+                trace = os.path.join(
+                    out, f"trace-step{capture['start'] + 1}"
+                    f"-host{self.rank}.json")
+                prof.export_chrome_trace(trace)
+                attr = os.path.join(out, "attribution.json" if self.rank == 0
+                                    else f"attribution-host{self.rank}.json")
+                from eksml_tpu_torch.profiling import \
+                    write_attribution_artifact
+
+                payload = write_attribution_artifact(trace, attr, extra={
+                    "steps": [capture["start"] + 1, step],
+                    "reason": capture["reason"], "host": self.rank,
+                    "device": str(self.device), "trace": trace})
+                table = payload["component_table"]
+                done.update(trace=trace, attribution=attr, table=table)
+                if self.device.type == "cuda" and not table["device_events"]:
+                    # the capture ran but saw no kernel: say so (its
+                    # table then holds the host ops' time only)
+                    log.warning("profiler capture of steps %d-%d saw no "
+                                "device events", capture["start"] + 1, step)
+                log.info("profiler trace%s of steps %d-%d written to %s; "
+                         "%s time by component: %s",
+                         " (truncated run)" if truncated else "",
+                         capture["start"] + 1, step, trace, table["basis"],
+                         json.dumps(table["component_pct"]))
+            except Exception:  # noqa: BLE001 — shutdown must proceed
+                log.warning("torch.profiler capture failed to stop or "
+                            "write", exc_info=True)
+        span_path = None
+        if self.tracer is not None:
+            self.tracer.instant("profile_capture_done", step=step,
+                                reason=capture["reason"])
+            span_path = self.tracer.flush()
+        telemetry.event("profile_capture_done", step=step,
+                        reason=capture["reason"], truncated=bool(truncated),
+                        spans=span_path or "", trace=done["trace"] or "")
+        if capture["from_trigger"] and trigger is not None:
+            trigger.finish()
+        self.last_capture = done
+        return None
 
     def _rollback(self, sentinel: DivergenceSentinel, step: int,
                   watchdog=None) -> int:
@@ -833,9 +1282,10 @@ class Trainer:
         t0 = time.perf_counter()
         ok = True
         try:
-            model = self.eval_model()
-            with torch.no_grad():
-                results = self.eval_fn(model, step)
+            with telemetry.span("eval", step=step):
+                model = self.eval_model()
+                with torch.no_grad():
+                    results = self.eval_fn(model, step)
             del model
             if results and self.writer:
                 self.writer.write_scalars(
@@ -845,16 +1295,23 @@ class Trainer:
             log.exception("eval at step %d failed", step)
         finally:
             self.model.train()
+            eval_s = time.perf_counter() - t0
             telemetry.event("eval_done", step=step, ok=ok,
-                            eval_ms=round((time.perf_counter() - t0) * 1e3, 1))
+                            eval_ms=round(eval_s * 1e3, 1))
+            if self._goodput is not None:
+                # coarse_only: with spans the eval span fed the meter
+                self._goodput.credit("eval", eval_s, coarse_only=True)
 
     def close(self) -> None:
-        """Land the last checkpoint and close the writer and recorder
-        (safe to call twice)."""
+        """Land the last checkpoint, close the writer and recorder and
+        uninstall the tracer (safe to call twice)."""
         self.ckpt.close()
         writer, self.writer = self.writer, None
         if writer:
             writer.close()
+        tracer, self.tracer = self.tracer, None
+        if tracer is not None and telemetry.get_tracer() is tracer:
+            telemetry.install_tracer(None)
         recorder, self.recorder = self.recorder, None
         if recorder is not None:
             if telemetry.recorder.get() is recorder:
@@ -884,7 +1341,9 @@ def parse_args(argv=None):
                    help="steps to train to (default: TRAIN.STEPS_PER_EPOCH "
                         "x TRAIN.MAX_EPOCHS)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help=f"profile N steps (waits for {PROFILE_ITEM})")
+                   help="on rank 0, a torch.profiler capture of N steps "
+                        "after the first, written with its attribution by "
+                        "model component to <logdir>/profile")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without one)")
     return p.parse_args(argv)
@@ -914,8 +1373,6 @@ def main(argv=None) -> int:
         level=logging.INFO, force=True,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = parse_args(argv)
-    if args.profile > 0:
-        raise NotImplementedError(f"--profile waits for {PROFILE_ITEM}")
 
     from eksml_tpu_torch.config import config, config_from_env, finalize_configs
     from eksml_tpu_torch.data.coco import CocoDataset
@@ -979,7 +1436,7 @@ def main(argv=None) -> int:
         if args.load is not None:
             start = trainer.restore_or_init(args.load)
         trainer.fit(loader.batches(None), total_steps, start_step=start,
-                    data_health=loader.health)
+                    data_health=loader.health, profile_steps=args.profile)
     except PreemptedError as e:
         log.warning("preempted at step %d: exiting with resumable code %d "
                     "(a relaunch auto-resumes)", e.step, e.exit_code)

@@ -239,10 +239,13 @@ class CheckpointManager:
         if not is_coordinator():
             return False
         t0 = time.perf_counter()
-        self._drain()
-        if not force and step in self.all_steps():
-            return False
-        snap = snapshot_to_host(state)
+        # the span is the step loop's blocking part (host copy); the
+        # background write is not in it
+        with telemetry.span("checkpoint_save", step=step):
+            self._drain()
+            if not force and step in self.all_steps():
+                return False
+            snap = snapshot_to_host(state)
         blocking_ms = (time.perf_counter() - t0) * 1e3
         self.last_save = {"step": int(step), "blocking_ms": blocking_ms,
                           "bytes": tensor_bytes(snap)}
@@ -325,8 +328,9 @@ class CheckpointManager:
         if step is None:
             return None
         path = os.path.join(self.directory, str(step), STATE_FILE)
-        return torch.load(path, map_location="cpu", weights_only=True,
-                          mmap=mmap)
+        with telemetry.span("checkpoint_restore", step=step):
+            return torch.load(path, map_location="cpu", weights_only=True,
+                              mmap=mmap)
 
     def restore_with_fallback(
             self, load_into: Optional[Callable[[Any], None]] = None

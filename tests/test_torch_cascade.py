@@ -59,7 +59,7 @@ def tiny_cfg(config_mod, *extra):
     cfg.freeze(False)
     cfg.update_args(list(SMOKE_OVERRIDES) + [
         "MODE_CASCADE=True", "PREPROC.DEVICE_NORMALIZE=False",
-        f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", *extra])
+        f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TELEMETRY.PORT=0", *extra])
     cfg.PREPROC.TEST_SHORT_EDGE_SIZE = IMG
     cfg.RPN.TEST_PRE_NMS_TOPK = 64
     cfg.RPN.TEST_POST_NMS_TOPK = 32
@@ -267,7 +267,7 @@ def test_run_evaluation_of_a_cascade_model_matches_jax(tmp_path):
     def cfg(config_mod):
         c = config_mod.config.clone()
         c.freeze(False)
-        c.update_args(list(SMOKE_OVERRIDES) + extra)
+        c.update_args(list(SMOKE_OVERRIDES) + ["TELEMETRY.PORT=0"] + extra)
         c.freeze()
         return c
 

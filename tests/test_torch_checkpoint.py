@@ -51,7 +51,9 @@ LOSS_KEYS = ("rpn_cls_loss", "rpn_box_loss", "frcnn_cls_loss",
 RUN = ("PREPROC.DEVICE_NORMALIZE=False", f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
        "TRAIN.GRADIENT_CLIP=5.0", "TRAIN.BASE_LR=0.1",
        "TRAIN.WARMUP_STEPS=0", "TRAIN.STEPS_PER_EPOCH=2",
-       "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1")
+       "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1",
+       # an ephemeral exporter port: the xdist workers never share 9090
+       "TELEMETRY.PORT=0")
 
 
 def tiny_cfg(config_mod, *extra):
@@ -407,7 +409,6 @@ def test_backbone_npz_matches_the_reference(jax_run, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--synthetic", "--profile", "2"], "item 7"),
     (["--synthetic", "--config", "TRAIN.SHARDING.STRATEGY=tensor",
       "TRAIN.SHARDING.MODEL_AXIS_SIZE=1"], "item 4"),
 ])
@@ -423,6 +424,36 @@ def test_entry_point_options_that_wait(tmp_path, argv, match):
         t_config.config.freeze(False)
         t_config.config.from_dict(saved)
         t_config.config.freeze()
+
+
+def test_entry_point_profile_writes_a_capture(tmp_path):
+    """``--profile 2``: the entry point captures steps 2-3 with
+    torch.profiler and writes the Chrome trace and its attribution by
+    model component under ``<logdir>/profile``."""
+    saved = t_config.config.to_dict()
+    try:
+        assert t_train.main([
+            "--device", "cpu", "--logdir", str(tmp_path), "--synthetic",
+            "--total-steps", "3", "--profile", "2", "--config",
+            *SMOKE_OVERRIDES, "TRAIN.BATCH_SIZE_PER_CHIP=1",
+            "TRAIN.STEPS_PER_EPOCH=3", "TRAIN.LOG_PERIOD=1",
+            "TELEMETRY.PORT=0"]) == 0
+    finally:
+        t_config.config.freeze(False)
+        t_config.config.from_dict(saved)
+        t_config.config.freeze()
+    profile = tmp_path / "profile"
+    assert sorted(os.listdir(profile)) == ["attribution.json",
+                                           "trace-step2-host0.json"]
+    with open(profile / "attribution.json") as f:
+        attr = json.load(f)
+    assert attr["steps"] == [2, 3] and attr["reason"] == "cli"
+    table = attr["component_table"]
+    assert {"backbone", "backbone-bwd", "roi-fwd", "roi-bwd",
+            "optimizer"} <= set(table["component_pct"])
+    with open(tmp_path / "events-host0.jsonl") as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    assert kinds.count("profile_capture_done") == 1
 
 
 # ---------------------------------------------------------------------

@@ -53,7 +53,8 @@ from eksml_tpu_torch.data.robust import (  # noqa: E402
     classify_error)
 from test_data_robust import _disk_records, _tiny_coco, _truncate  # noqa: E402
 
-SMOKE = list(t_config.SMOKE_OVERRIDES)
+# an ephemeral exporter port: the xdist workers never share 9090
+SMOKE = list(t_config.SMOKE_OVERRIDES) + ["TELEMETRY.PORT=0"]
 
 
 def _port_cfg(*extra, config_mod=t_config):

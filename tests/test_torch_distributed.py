@@ -59,7 +59,7 @@ LOSS_KEYS = ("rpn_cls_loss", "rpn_box_loss", "frcnn_cls_loss",
              "frcnn_box_loss", "mrcnn_loss", "total_loss")
 OVERRIDES = list(SMOKE_OVERRIDES) + [
     "PREPROC.DEVICE_NORMALIZE=False", "TRAIN.GRADIENT_CLIP=5.0",
-    "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0"]
+    "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0", "TELEMETRY.PORT=0"]
 ONE = ["TRAIN.BATCH_SIZE_PER_CHIP=2", "TRAIN.NUM_CHIPS=1"]
 TWO = ["TRAIN.BATCH_SIZE_PER_CHIP=1", "TRAIN.NUM_CHIPS=2"]
 RANKS = os.path.join(REPO, "tests", "torch_dist_ranks.py")

@@ -40,7 +40,7 @@ from test_torch_distributed import launch  # noqa: E402
 from torch_dist_ranks import (EVAL_BUCKETS, EVAL_OVERRIDES,  # noqa: E402
                               gt_stub, recording_predict, shape_records)
 
-SMOKE = list(t_config.SMOKE_OVERRIDES)
+SMOKE = list(t_config.SMOKE_OVERRIDES) + ["TELEMETRY.PORT=0"]
 OVERRIDES = SMOKE + list(EVAL_OVERRIDES) + [
     "TRAIN.BATCH_SIZE_PER_CHIP=1", "TRAIN.NUM_CHIPS=2"]
 

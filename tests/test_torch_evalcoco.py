@@ -68,7 +68,7 @@ def _cfg(config_mod, *extra):
     cfg = config_mod.config.clone()
     cfg.freeze(False)
     cfg.update_args(list(SMOKE_OVERRIDES) + list(EVAL_OVERRIDES)
-                    + list(extra))
+                    + ["TELEMETRY.PORT=0"] + list(extra))
     cfg.freeze()
     return cfg
 
@@ -436,7 +436,7 @@ def test_chip_smoke_eval_phases_run_on_the_cpu(tmp_path, monkeypatch):
     cfg.update_args(list(SMOKE_OVERRIDES) + [
         "TRAIN.LOG_PERIOD=1", "TRAIN.BATCH_SIZE_PER_CHIP=2",
         "PREPROC.TEST_SHORT_EDGE_SIZE=128", "TEST.EVAL_BATCH_SIZE=2",
-        "DATA.NUM_WORKERS=2"])
+        "DATA.NUM_WORKERS=2", "TELEMETRY.PORT=0"])
     cfg.freeze()
     trainer, _, _ = chip_smoke.phase_train(cfg, KERNELS, 0,
                                            str(tmp_path / "train"))

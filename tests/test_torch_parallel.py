@@ -50,7 +50,7 @@ from eksml_tpu_torch.telemetry import aggregate as t_aggregate  # noqa: E402
 def _cfg(config_mod, overrides):
     cfg = config_mod.config.clone()
     cfg.freeze(False)
-    cfg.update_args(list(overrides))
+    cfg.update_args(list(overrides) + ["TELEMETRY.PORT=0"])
     cfg.freeze()
     return cfg
 
@@ -350,7 +350,8 @@ def test_entry_point_two_ranks_agree_on_sigterm(tmp_path):
     run = tmp_path / "run"
     argv = [sys.executable, "-m", "eksml_tpu_torch.train", "--device", "cpu",
             "--synthetic", "--logdir", str(run), "--total-steps", "200",
-            "--config", *SMOKE_OVERRIDES, "TRAIN.NUM_CHIPS=2",
+            "--config", *SMOKE_OVERRIDES, "TELEMETRY.PORT=0",
+            "TRAIN.NUM_CHIPS=2",
             "TRAIN.BATCH_SIZE_PER_CHIP=1", "TRAIN.STEPS_PER_EPOCH=200",
             "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1",
             "RESILIENCE.PREEMPT_SYNC_PERIOD=1",

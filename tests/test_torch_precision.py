@@ -78,7 +78,8 @@ def tiny_cfg(config_mod, *extra):
     cfg.update_args(list(SMOKE_OVERRIDES) + [
         "PREPROC.DEVICE_NORMALIZE=False",
         f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.GRADIENT_CLIP=5.0",
-        "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0", *extra])
+        "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0", "TELEMETRY.PORT=0",
+        *extra])
     cfg.PREPROC.TEST_SHORT_EDGE_SIZE = IMG
     cfg.RPN.TEST_PRE_NMS_TOPK = 64
     cfg.RPN.TEST_POST_NMS_TOPK = 32

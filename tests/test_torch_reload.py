@@ -61,7 +61,8 @@ SERVE = ("PREPROC.TEST_SHORT_EDGE_SIZE=128", "RPN.TEST_PRE_NMS_TOPK=64",
 def tiny_cfg(config_mod, *extra):
     cfg = config_mod.config.clone()
     cfg.freeze(False)
-    cfg.update_args(list(SMOKE_OVERRIDES) + list(extra))
+    cfg.update_args(list(SMOKE_OVERRIDES) + ["TELEMETRY.PORT=0"]
+                    + list(extra))
     cfg.freeze()
     return cfg
 

@@ -51,7 +51,8 @@ RETRY = dict(zip(IMPLS, (j_retry, t_retry)))
 RUN = ("PREPROC.DEVICE_NORMALIZE=False", "TRAIN.BATCH_SIZE_PER_CHIP=1",
        "TRAIN.GRADIENT_CLIP=5.0", "TRAIN.BASE_LR=0.1",
        "TRAIN.WARMUP_STEPS=0", "TRAIN.STEPS_PER_EPOCH=2",
-       "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1")
+       "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1",
+       "TELEMETRY.PORT=0")
 
 
 # ---------------------------------------------------------------------

@@ -72,7 +72,9 @@ def tiny_cfg(config_mod, *extra):
         # below the first step's gradient norm: the clip is exercised
         "TRAIN.GRADIENT_CLIP=5.0",
         # updates far above one float32 ulp of the parameters they move
-        "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0", *extra])
+        "TRAIN.BASE_LR=0.1", "TRAIN.WARMUP_STEPS=0",
+        # an ephemeral exporter port: the xdist workers never share 9090
+        "TELEMETRY.PORT=0", *extra])
     cfg.freeze()
     return cfg
 

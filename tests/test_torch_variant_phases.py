@@ -39,7 +39,7 @@ def test_chip_smoke_variant_phases_run_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "CASCADE", ("MODE_CASCADE=True",))
     monkeypatch.setattr(chip_smoke, "VARIANT_BASE", tuple(SMOKE_OVERRIDES) + (
         "PREPROC.TEST_SHORT_EDGE_SIZE=128", "RPN.TEST_PRE_NMS_TOPK=64",
-        "RPN.TEST_POST_NMS_TOPK=32"))
+        "RPN.TEST_POST_NMS_TOPK=32", "TELEMETRY.PORT=0"))
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     for name in ("max_memory_allocated", "memory_allocated"):

@@ -65,7 +65,8 @@ def _close(got, want, rel=1e-4):
 def cfg_of(config_mod, *extra):
     cfg = config_mod.config.clone()
     cfg.freeze(False)
-    cfg.update_args(list(SMOKE_OVERRIDES) + list(extra))
+    cfg.update_args(list(SMOKE_OVERRIDES) + ["TELEMETRY.PORT=0"]
+                    + list(extra))
     cfg.freeze()
     return cfg
 

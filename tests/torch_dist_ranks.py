@@ -16,7 +16,11 @@ checkpoint restored at world 2, and the refusal with
 the model, and with a predict that raises on rank 1 only.
 ``fsdp_eval``: ``Trainer._run_eval`` under ``fsdp`` with
 ``PREPROC.BUCKETS`` over shards of unequal batch counts.  Each rank
-writes ``<workdir>/<scenario>-rank<r>.pt``.
+writes ``<workdir>/<scenario>-rank<r>.pt``.  ``exporter`` (no inputs):
+one step of ``Trainer.fit`` per rank in one shared logdir with the
+telemetry exporter on the fixed port ``$EKSML_TEST_HTTP_PORT`` and a
+liveness bound; prints ``EXPORTER 1`` where this rank's exporter bound
+(its port file), ``EXPORTER 0`` elsewhere.
 
 ``shape_records`` and ``gt_stub`` are also the single-process tests'
 inputs (``tests/test_torch_evalcoco.py``).
@@ -48,7 +52,7 @@ from eksml_tpu_torch.utils.checkpoint import full_state_dict  # noqa: E402
 def rank_cfg(overrides, *extra):
     cfg = t_config.config.clone()
     cfg.freeze(False)
-    cfg.update_args(list(overrides) + list(extra))
+    cfg.update_args(list(overrides) + ["TELEMETRY.PORT=0"] + list(extra))
     cfg.freeze()
     return cfg
 
@@ -338,10 +342,40 @@ def scenario_fsdp_eval(inputs, rank, workdir):
             "still_sharded": still_sharded}
 
 
+def scenario_exporter(rank, workdir):
+    import logging
+
+    from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout, force=True)
+    cfg = rank_cfg(t_config.SMOKE_OVERRIDES, "TRAIN.BATCH_SIZE_PER_CHIP=1",
+                   "TRAIN.NUM_CHIPS=2", "TRAIN.LOG_PERIOD=1",
+                   f"TELEMETRY.PORT={os.environ['EKSML_TEST_HTTP_PORT']}",
+                   "TELEMETRY.HEALTHZ_STALE_SEC=600")
+    ds = SyntheticDataset(num_images=4, height=128, width=128,
+                          num_classes=cfg.DATA.NUM_CLASSES)
+    loader = DetectionLoader(ds.records(), cfg, 1, num_hosts=2,
+                             host_id=rank, gt_mask_size=28)
+    logdir = os.path.join(workdir, "exporter")
+    trainer = Trainer(cfg, logdir, device="cpu")
+    trainer.init_state()
+    trainer.fit(loader.batches(1), 1)
+    trainer.close()
+    bound = os.path.exists(os.path.join(logdir,
+                                        f"telemetry-host{rank}.port"))
+    print(f"EXPORTER {int(bound)}", flush=True)
+
+
 def main():
     scenario, workdir = sys.argv[1], sys.argv[2]
     assert distributed.initialize_from_env(device="cpu")
     rank = distributed.process_index()
+    if scenario == "exporter":
+        try:
+            scenario_exporter(rank, workdir)
+        finally:
+            distributed.shutdown()
+        return
     inputs = torch.load(os.path.join(workdir, "inputs.pt"),
                         weights_only=False)
     try:
