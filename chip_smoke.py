@@ -88,6 +88,25 @@ Phases (any failure raises and exits non-zero; nothing falls back):
              evaluates the 2-rank run's checkpoint under FSDP2 as 2 ranks
              (``--eval-rank``) and compares rank 0's AP with one process.
 
+After lifecycle, the serving fleet and the elastic operator:
+
+fleet    — the serve chart's stable and canary tracks (its golden
+             rendering's ``--config``: bf16, one 1344² bucket, rungs 1 and
+             4) in this process on the lifecycle phase's checkpoints, each
+             with its own engine, server, ReloadManager and flight
+             recorder: ``eksml_tpu_torch.tools.serve_loadtest``'s closed
+             loop at concurrency 1, 4 and 8 and an open loop at half the
+             rate, a shadow replay of a 32-request bank, the promotion
+             controller to a promote and to a rollback, the ROIAlign
+             forward's launches (2 per dispatched batch over both tracks),
+             then the chart's command as a subprocess (healthz, 4
+             requests, SIGTERM drain).
+operator — ``python -m eksml_tpu_torch.tools.eksml_operator --mode
+             local`` at SMOKE widths on a capacity file going 1 -> 2 -> 1:
+             NCCL ranks with two or more cards; with one, gloo ranks on
+             the CPU, and on the card a refused 1 -> 2 and a stopped and
+             relaunched world-1 trainer.  Each transition's downtime.
+
 The variant phases (train_bf16, serve_bf16, cascade,
 variants_reference) are described at their functions.  Last:
 
@@ -133,7 +152,8 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
-          "lifecycle", "dist", "ranks", "train_reference", "eval",
+          "lifecycle", "fleet", "operator", "dist", "ranks",
+          "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
           "variants_reference", "observe")
 
@@ -1485,6 +1505,656 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
     # the lifecycle path's launches: 2 + 5 training steps and the reload
     out["launches"] = {kern.name: sum(c[kern.name] for c in path_launches)
                        for kern in kernels}
+    out["run"] = run       # the fleet phase serves its checkpoints
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase fleet: the serve chart's two tracks, the load tool, promotion
+# ---------------------------------------------------------------------
+
+#: the serve chart's golden rendering: the stable Deployment's command
+CHART = os.path.join("charts", "golden", "serve__serve.yaml")
+#: requests per closed-loop run: FLEET_PER_WORKER per concurrent worker
+FLEET_CONCURRENCY = (1, 4, 8)
+FLEET_PER_WORKER = 8
+FLEET_OPEN_REQUESTS = 64
+FLEET_BANK = 32
+#: the bank's pre-threshold top-k (the drift signal's depth)
+FLEET_TOPK = 16
+
+
+def chart_command(track: str = "stable"):
+    """The ``command:`` list of the serve chart's ``track`` Deployment in
+    its golden rendering (the Deployment whose ``--serve-id`` is
+    ``track``)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, CHART)) as f:
+        lines = f.read().splitlines()
+    commands, cur = [], None
+    for line in lines:
+        s = line.strip()
+        if s == "command:":
+            cur = []
+            commands.append(cur)
+        elif cur is not None and s.startswith("- "):
+            cur.append(s[2:].strip('"'))
+        elif cur is not None:
+            cur = None
+    for cmd in commands:
+        if "--serve-id" in cmd and cmd[cmd.index("--serve-id") + 1] == track:
+            return cmd
+    raise AssertionError(f"no {track} serving command in {CHART}")
+
+
+class FleetTrack:
+    """One serving track of the chart in this process: its own engine,
+    ``ServingServer`` (ephemeral port), ``ReloadManager`` and flight
+    recorder (``events-host<serve_id>.jsonl`` in the logdir), at
+    ``step``.  Its reload watcher stays off: the phase moves it."""
+
+    def __init__(self, cfg, run: str, serve_id: str, step: int,
+                 device: str = "cuda"):
+        import torch
+
+        from eksml_tpu_torch.serve import (InferenceEngine, MicroBatcher,
+                                           ReloadManager, ServingServer)
+        from eksml_tpu_torch.telemetry.recorder import (FlightRecorder,
+                                                        events_path_for)
+
+        cuda = device == "cuda"
+        before = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        self.serve_id = serve_id
+        self.engine = InferenceEngine(cfg, checkpoint_dir=run,
+                                      checkpoint_step=step, device=device)
+        self.server = ServingServer(
+            MicroBatcher(self.engine, cfg), port=0, addr="127.0.0.1",
+            result_masks_default=bool(cfg.SERVE.RESULT_MASKS))
+        self.recorder = FlightRecorder(
+            path=events_path_for(run, serve_id), host_id=serve_id)
+        self.reload = ReloadManager(
+            self.engine, run, lock=self.server.lifecycle_lock,
+            is_draining=self.server.draining.is_set,
+            check_digest=bool(cfg.SERVE.RELOAD_DIGEST),
+            recorder=self.recorder)
+        self.server.reload_manager = self.reload
+        self.server.start()
+        self.url = f"http://127.0.0.1:{self.server.port}"
+        t0 = time.perf_counter()
+        self.warmed = self.engine.warmup()
+        if cuda:
+            torch.cuda.synchronize()
+        self.warmup_s = time.perf_counter() - t0
+        self.server.mark_ready()
+        self.memory = {
+            "resident_bytes": (torch.cuda.memory_allocated() - before
+                               if cuda else None),
+            "warmup_peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else None)}
+
+    def close(self):
+        self.server.drain(timeout=60)
+        self.engine.close()
+        self.recorder.close()
+
+
+def _rows(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _lat(art) -> str:
+    lat = art["latency_ms"]
+    return (f"p50 {lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms, "
+            f"{art['images_per_sec']:.2f} images/s")
+
+
+def raw_rows(stable, canary, bank, n: int = 4):
+    """The first ``n`` bank images posted to both tracks one at a time (a
+    batch of 1 on each), and to stable once more: per image the finite raw
+    scores of each track's ``raw_top``, whether the two tracks' classes
+    agree rank by rank, the largest score difference where both are
+    finite, and the same two for stable against itself."""
+    from eksml_tpu_torch.tools import serve_loadtest as lt
+
+    def diff(a, b):
+        sa, sb = (np.asarray(x["scores"], np.float64) for x in (a, b))
+        both = np.isfinite(sa) & np.isfinite(sb)
+        return (a["classes"] == b["classes"],
+                float(np.abs(sa - sb)[both].max()) if both.any() else 0.0)
+
+    out = {"finite_scores": [], "classes_equal": [], "max_score_delta": 0.0,
+           "stable_again_classes_equal": [], "stable_again_delta": 0.0}
+    for row in bank["requests"][:n]:
+        img = lt.bank_image(bank, row)
+        a, b, again = (lt.post_predict(t.url, img,
+                                       raw_topk=FLEET_TOPK)["raw_top"]
+                       for t in (stable, canary, stable))
+        out["finite_scores"].append([int(np.isfinite(x["scores"]).sum())
+                                     for x in (a, b)])
+        same, delta = diff(a, b)
+        out["classes_equal"].append(same)
+        out["max_score_delta"] = max(out["max_score_delta"], delta)
+        same, delta = diff(a, again)
+        out["stable_again_classes_equal"].append(same)
+        out["stable_again_delta"] = max(out["stable_again_delta"], delta)
+    return out
+
+
+def phase_fleet(kernels, seed: int, workdir: str, run: str,
+                device: str = "cuda"):
+    """The serve chart's stable and canary tracks on the lifecycle
+    phase's checkpoints (``run``: steps 2-5), in this process, at the
+    chart's ``--config`` (bf16, one 1344² bucket, rungs 1 and 4): the load
+    tool's closed and open loops on stable, a shadow replay of a 32-request
+    bank at both, the promotion controller to a promote and to a
+    rollback; both tracks then on one step, the run's step 5 and a seeded
+    init written as step 6 (whose raw outputs are finite, unlike the
+    trained steps'), for the drift of identical weights; then the chart's
+    command as a subprocess on the card."""
+    import torch
+
+    from eksml_tpu_torch import telemetry
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.telemetry.recorder import events_path_for
+    from eksml_tpu_torch.tools import eksml_operator as op
+    from eksml_tpu_torch.tools import serve_loadtest as lt
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cmd = chart_command("stable")
+    items = cmd[cmd.index("--config") + 1:]
+    cfg = variant_config(*items, training=False)
+    assert cfg.TRAIN.PRECISION == "bfloat16" and \
+        not cfg.SERVE.RESULT_MASKS, items
+    root = os.path.join(run, "checkpoints")
+    steps = sorted(int(n) for n in os.listdir(root) if n.isdigit())
+    assert steps[-3:] == [3, 4, 5], steps
+    out = {"reloads": []}
+    stable = canary = None
+    try:
+        stable = FleetTrack(cfg, run, "stable", 3, device)
+        canary = FleetTrack(cfg, run, "canary", 5, device)
+        for t in (stable, canary):
+            out[f"{t.serve_id}_memory"] = t.memory
+            out[f"{t.serve_id}_warmup_s"] = t.warmup_s
+            log(f"[fleet] {t.serve_id} track at step "
+                f"{t.engine.params_step}: {t.warmed} shape(s) "
+                f"{t.engine.buckets} x {t.engine.rungs} warmed in "
+                f"{t.warmup_s:.1f} s; " + json.dumps(t.memory))
+        bank_path = os.path.join(workdir, "fleet-bank.json")
+        assert lt.main(["--record", bank_path, "--seed", str(seed),
+                        "--requests", str(FLEET_BANK)]) == 0
+        with open(bank_path) as f:
+            bank = json.load(f)
+        batches = telemetry.default_registry().counter("eksml_serve_batches")
+        # the main path's run: every count starts at 0 here
+        for k in kernels:
+            k.launches = 0
+        batches_before = batches.value
+
+        def compiles(url):
+            rpc = lt.fetch_health(url)["request_path_compiles"]
+            assert rpc == 0, f"{url}: request_path_compiles = {rpc}"
+            return rpc
+
+        loads = {}
+        for conc in FLEET_CONCURRENCY:
+            art = lt.run_load(stable.url, FLEET_PER_WORKER * max(2, conc),
+                              conc, seed=seed)
+            assert art["errors"] == 0, art["error_samples"]
+            compiles(stable.url)
+            loads[f"closed_c{conc}"] = art
+            log(f"[fleet] stable closed loop, concurrency {conc}, "
+                f"{art['completed']} requests: {_lat(art)}; phases ms "
+                "(mean / p99): " + ", ".join(
+                    f"{ph} {v['mean']} / {v['p99']}"
+                    for ph, v in art["phase_ms"].items())
+                + f"; batch occupancy {art['batch_occupancy_mean']}")
+        rate = loads[f"closed_c{FLEET_CONCURRENCY[-1]}"]["images_per_sec"] / 2
+        art = lt.run_load(stable.url, FLEET_OPEN_REQUESTS,
+                          FLEET_CONCURRENCY[-1], mode="open", rate=rate,
+                          seed=seed)
+        assert art["errors"] == 0, art["error_samples"]
+        compiles(stable.url)
+        loads["open"] = art
+        log(f"[fleet] stable open loop at {rate:.2f} requests/s (half the "
+            f"concurrency-{FLEET_CONCURRENCY[-1]} rate), "
+            f"{art['completed']} requests: {_lat(art)}; "
+            + json.dumps(art["open_loop"]))
+        out["loads"] = {k: {"latency_ms": v["latency_ms"],
+                            "images_per_sec": v["images_per_sec"],
+                            "phase_ms": v["phase_ms"],
+                            "open_loop": v["open_loop"]}
+                        for k, v in loads.items()}
+
+        first = lt.replay_shadow(bank, stable.url, canary.url,
+                                 raw_topk=FLEET_TOPK)
+        assert first["canary_error_rate"] == 0 and \
+            first["scored"] == FLEET_BANK, first
+        log(f"[fleet] shadow replay, stable step 3 against canary step 5: "
+            f"p99 ratio {first['p99_ratio']}, error rate "
+            f"{first['canary_error_rate']}, drift {first['drift']}")
+        out["shadow_3_5"] = {k: first[k] for k in (
+            "p99_ratio", "canary_error_rate", "drift")}
+
+        # gates set up to promote: the drift gate above the measured
+        # drift, the latency gate at twice the measured ratio
+        drift = first["drift"]["mean"]
+        knobs = dict(op.RESILIENCE_AUTOSCALE_DEFAULTS,
+                     CANARY_MIN_REQUESTS=FLEET_BANK,
+                     CANARY_DRIFT_MAX=min(1.0, drift + max(
+                         0.1, (1.0 - drift) / 2)),
+                     CANARY_P99_RATIO_MAX=2.0 * max(1.0, first["p99_ratio"]),
+                     CANARY_PROMOTE_STREAK=2)
+        ctl = op.PromotionController(run, stable.url, canary.url, bank,
+                                     knobs, raw_topk=FLEET_TOPK)
+        ticks = [ctl.tick() for _ in range(2)]
+        got = [t["verdict"] for t in ticks]
+        assert got == ["promote", "promote"], [t["reason"] for t in ticks]
+        promote = ticks[1]["reload"]
+        assert promote.get("ok"), promote
+        out["reloads"].append(("promote stable 3 -> 5", promote))
+        assert lt.fetch_health(stable.url)["params_step"] == 5
+        held = ctl.tick()
+        assert held["verdict"] == "hold" and "converged" in held["reason"], \
+            held
+        log(f"[fleet] promotion controller: {got} (gates: drift "
+            f"{knobs['CANARY_DRIFT_MAX']:.4f}, p99 ratio "
+            f"{knobs['CANARY_P99_RATIO_MAX']:.3f}; scored drift "
+            f"{[t['score']['drift']['mean'] for t in ticks]}), stable now "
+            f"serves step 5; next tick: {held['verdict']} ({held['reason']})")
+
+        moved = op.post_reload(canary.url, step=4)
+        assert moved.get("ok"), moved
+        out["reloads"].append(("canary 5 -> 4", moved))
+        ctl.knobs = dict(knobs, CANARY_DRIFT_MAX=0.0)
+        back = ctl.tick()
+        assert back["verdict"] == "rollback", back["reason"]
+        assert back.get("reload", {}).get("ok"), back
+        out["reloads"].append(("rollback canary 4 -> 5", back["reload"]))
+        assert lt.fetch_health(canary.url)["params_step"] == 5
+        log(f"[fleet] rollback: canary at step 4 with CANARY_DRIFT_MAX=0: "
+            f"{back['verdict']} ({back['reason']}); canary serves step 5")
+
+        # the drift of identical weights: the run's step 5, then a
+        # seeded init committed as step 6
+        ckpt = CheckpointManager(run, max_to_keep=10)
+        assert ckpt.save(6, {"model": init_params(
+            cfg, torch.Generator().manual_seed(seed))})
+        ckpt.close()
+        for step in (5, 6):
+            if step == 6:
+                for t in (stable, canary):
+                    moved = op.post_reload(t.url, step=6)
+                    assert moved.get("ok"), moved
+                    out["reloads"].append((f"{t.serve_id} 5 -> 6", moved))
+            same = lt.replay_shadow(bank, stable.url, canary.url,
+                                    raw_topk=FLEET_TOPK)
+            assert same["canary_error_rate"] == 0, same
+            rows = raw_rows(stable, canary, bank)
+            out[f"shadow_same_step_{step}"] = {
+                **{k: same[k] for k in ("p99_ratio", "canary_error_rate",
+                                        "drift")}, "raw_rows": rows}
+            log(f"[fleet] both tracks at step {step}: replay drift "
+                f"{same['drift']}, p99 ratio {same['p99_ratio']}; 4 images "
+                f"one at a time: finite raw scores (stable, canary) "
+                f"{rows['finite_scores']}, classes equal "
+                f"{rows['classes_equal']}, largest score difference "
+                f"{rows['max_score_delta']:.3e}; stable against itself: "
+                f"classes equal {rows['stable_again_classes_equal']}, "
+                f"largest score difference {rows['stable_again_delta']:.3e}")
+
+        dispatched = int(batches.value - batches_before)
+        launches = {k.name: k.launches for k in kernels}
+        fwd = kernels.fwd.name
+        log(f"[fleet] both tracks dispatched {dispatched} batches; "
+            f"launches {launches}")
+        assert launches[fwd] > 0, f"{fwd} never launched on the fleet path"
+        assert launches[fwd] == 2 * dispatched, (
+            f"{fwd}: {launches[fwd]} launches for {dispatched} batches")
+        assert all(n == 0 for k, n in launches.items() if k != fwd), launches
+        out["launches"] = launches
+        out["dispatched"] = dispatched
+        for t in (stable, canary):
+            compiles(t.url)
+        for name, r in out["reloads"]:
+            log(f"[fleet] reload {name}: verify {r['verify_ms']:.1f} ms, "
+                f"restore {r['restore_ms']:.1f} ms, swap {r['swap_ms']:.1f} "
+                f"ms ({r['duration_ms']} ms)")
+    finally:
+        for t in (stable, canary):
+            if t is not None:
+                t.close()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # the evidence files, each its own
+    ev = {sid: _rows(events_path_for(run, sid))
+          for sid in ("stable", "canary", "cd")}
+    assert [(e["kind"], e["step"]) for e in ev["stable"]] == [
+        ("serve_reload", 5), ("serve_reload", 6)], ev["stable"]
+    assert [(e["kind"], e["step"]) for e in ev["canary"]] == [
+        ("serve_reload", 4), ("serve_reload", 5), ("serve_reload", 6)], \
+        ev["canary"]
+    assert [e["kind"] for e in ev["cd"]] == [
+        "canary_score", "canary_score", "canary_promote", "canary_score",
+        "canary_rollback"], ev["cd"]
+    verdicts = [r["verdict"] for r in _rows(ctl.bank_path)]
+    assert verdicts == ["promote", "promote", "hold", "rollback"], verdicts
+    log(f"[fleet] events-hoststable.jsonl {len(ev['stable'])} row(s), "
+        f"events-hostcanary.jsonl {len(ev['canary'])}, events-hostcd.jsonl "
+        f"{[e['kind'] for e in ev['cd']]}, canary-host0.jsonl {verdicts}")
+
+    # the chart's command as a subprocess: only the module, the logdir and
+    # the port changed
+    port_file = os.path.join(workdir, "fleet-serve.port")
+    argv = [sys.executable] + [
+        "eksml_tpu_torch.serve" if a == "eksml_tpu.serve"
+        else run if a.startswith("/efs/") else a for a in cmd[1:]] + [
+        *VARIANT_BASE, "--port", "0", "--port-file", port_file]
+    if device != "cuda":
+        argv += ["--device", device]
+    out["subprocess"] = chart_subprocess(argv, workdir, port_file)
+    return out
+
+
+def chart_subprocess(argv, workdir: str, port_file: str,
+                     budget: float = 600.0):
+    """Start ``argv`` (a serving command), wait for ``/healthz`` 200,
+    answer 4 requests, drain on SIGTERM; the process is killed on any
+    failure."""
+    import signal
+
+    from eksml_tpu_torch.tools import serve_loadtest as lt
+
+    log_path = os.path.join(workdir, "fleet-serve.log")
+    log(f"[fleet] subprocess: {' '.join(argv[1:])}; signals blocked in "
+        "the launching thread (inherited by the child): "
+        f"{sorted(int(x) for x in signal.pthread_sigmask(signal.SIG_BLOCK, []))}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=here, env=env)
+    try:
+        deadline = time.monotonic() + budget
+        while not os.path.exists(port_file):
+            assert proc.poll() is None, f"exited {proc.returncode}"
+            assert time.monotonic() < deadline, "no port file"
+            time.sleep(0.2)
+        with open(port_file) as f:
+            url = f"http://127.0.0.1:{int(f.read().strip())}"
+        health = lt.wait_ready(url, budget=max(1.0,
+                                               deadline - time.monotonic()))
+        ready_s = time.perf_counter() - t0
+        art = lt.run_load(url, 4, 4, seed=1)
+        assert (art["completed"], art["errors"]) == (4, 0), art
+        post = lt.fetch_health(url)
+        assert post["request_path_compiles"] == 0, post
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    except BaseException:
+        with open(log_path) as f:
+            log(f"[fleet] subprocess output:\n{f.read()[-4000:]}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    assert rc == 0 and "drain complete" in text, (rc, text[-2000:])
+    log(f"[fleet] subprocess /healthz 200 after {ready_s:.1f} s (step "
+        f"{health['params_step']}, {health['warm_executables']} warm "
+        f"shapes, devices {health['devices']}); 4 requests {_lat(art)}; "
+        f"SIGTERM drained with rc {rc}")
+    return {"ready_s": ready_s, "params_step": health["params_step"],
+            "latency_ms": art["latency_ms"], "rc": rc}
+
+
+# ---------------------------------------------------------------------
+# phase operator: the elastic operator's capacity wave
+# ---------------------------------------------------------------------
+
+#: the operator's knobs for a wave: act at the first grow-capable tick
+OPERATOR_KNOBS = ("RESILIENCE.AUTOSCALE.CHIP_OPTIONS=(1,2)",
+                  "RESILIENCE.AUTOSCALE.GROW_PATIENCE=1",
+                  "RESILIENCE.AUTOSCALE.SHRINK_PATIENCE=1",
+                  "RESILIENCE.AUTOSCALE.COOLDOWN_SEC=0")
+OPERATOR_BUDGET = 300.0
+
+
+def operator_train_config():
+    """The relaunched trainer's items: SMOKE widths, every step logged,
+    no periodic checkpoint (a transition's is the forced one)."""
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES
+
+    return list(SMOKE_OVERRIDES) + [
+        "TELEMETRY.PORT=0", "TRAIN.SHARDING.STRATEGY=replicated",
+        "TRAIN.LOG_PERIOD=1", "TRAIN.STEPS_PER_EPOCH=100000",
+        "TRAIN.CHECKPOINT_PERIOD=100000"]
+
+
+class OperatorRun:
+    """``python -m eksml_tpu_torch.tools.eksml_operator --mode local`` on
+    ``logdir`` under the capacity file ``logdir/capacity.json``, in a
+    session of its own (``kill`` ends its ranks too)."""
+
+    def __init__(self, logdir: str, device: str, *extra):
+        self.logdir = logdir
+        os.makedirs(logdir, exist_ok=True)
+        self.cap = os.path.join(logdir, "capacity.json")
+        if not os.path.exists(self.cap):
+            self.capacity(1)
+        self.bank = os.path.join(logdir, "autoscale-host0.jsonl")
+        self.seen = len(_rows(self.bank)) if os.path.exists(self.bank) else 0
+        here = os.path.dirname(os.path.abspath(__file__))
+        argv = [sys.executable, "-m", "eksml_tpu_torch.tools.eksml_operator",
+                "--logdir", logdir, "--mode", "local", "--capacity-file",
+                self.cap, "--device", device, "--synthetic",
+                "--global-batch", "2", "--interval", "1",
+                "--stop-budget", "120", *extra, "--config",
+                *OPERATOR_KNOBS, "--train-config",
+                *operator_train_config()]
+        self.t0 = time.time()
+        with open(os.path.join(logdir, "operator.log"), "a") as f:
+            self.proc = subprocess.Popen(
+                argv, stdout=f, stderr=subprocess.STDOUT, cwd=here,
+                env=dict(os.environ, PYTHONPATH=here),
+                start_new_session=True)
+
+    def capacity(self, n: int) -> None:
+        from eksml_tpu_torch.fsio import atomic_write_json
+
+        atomic_write_json(self.cap, {"available_chips": int(n)})
+
+    def rows(self):
+        return _rows(self.bank)[self.seen:] if os.path.exists(self.bank) \
+            else []
+
+    def wait(self, pred, what: str):
+        deadline = time.monotonic() + OPERATOR_BUDGET
+        while time.monotonic() < deadline:
+            v = pred()
+            if v:
+                return v
+            assert self.proc.poll() is None, \
+                f"operator exited {self.proc.returncode} waiting for {what}"
+            time.sleep(0.2)
+        raise AssertionError(f"operator: no {what} in {OPERATOR_BUDGET} s")
+
+    def step_after(self, t: float):
+        path = os.path.join(self.logdir, "metrics.jsonl")
+        if not os.path.exists(path):
+            return None
+        rows = [r for r in _rows(path)
+                if "total_loss" in r and r["time"] > t]
+        return rows[0] if rows else None
+
+    def stop(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=OPERATOR_BUDGET)
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+
+
+def _operator_series(logdir: str) -> dict:
+    from eksml_tpu_torch.tools import eksml_operator as op
+
+    with open(os.path.join(logdir, "telemetry-operator.port")) as f:
+        port = int(f.read().strip())
+    text = op.scrape_url(f"http://127.0.0.1:{port}/metrics")
+    fams = op.parse_openmetrics(text or "")
+    return {name + "".join(f"{{{k}={v}}}" for k, v in labels.items()): v_
+            for name, samples in fams.items()
+            if name.startswith("eksml_autoscale_")
+            for labels, v_ in samples}
+
+
+def operator_wave(logdir: str, device: str, waves, tag: str):
+    """One operator run on a capacity wave: capacity 1 at launch, then
+    each ``(chips, expect)`` of ``waves`` (``expect``: "relaunch",
+    "refused" or "hold"), then SIGTERM.  Returns the transitions with their
+    downtime (SIGTERM to the first logged step after the relaunch), the
+    decisions, the operator's series and the HealthSignal it read."""
+    run = OperatorRun(logdir, device)
+    transitions = []
+    try:
+        first = run.wait(lambda: run.step_after(run.t0), "first step")
+        log(f"[operator] {tag}: first step {first['step']} "
+            f"{first['time'] - run.t0:.1f} s after the operator started")
+        for chips, expect in waves:
+            before = len(run.rows())
+            run.capacity(chips)
+            if expect == "hold":
+                row = run.wait(lambda: [
+                    r for r in run.rows()[before:]
+                    if r.get("available_chips") == chips], f"{chips}")[0]
+                assert (row["kind"], row["action"]) == ("decision", "hold"), \
+                    row
+                log(f"[operator] {tag}: capacity {chips}: {row['action']} "
+                    f"({row['reason']})")
+                transitions.append({"to": chips, "hold": row["reason"]})
+                continue
+            row = run.wait(lambda: [r for r in run.rows()[before:]
+                                    if r["kind"] in ("relaunch", "refused")],
+                           f"{expect} at {chips} chip(s)")[0]
+            assert row["kind"] == expect, row
+            if expect == "refused":
+                log(f"[operator] {tag}: {chips} chip(s) refused: "
+                    f"{row['reason']}")
+                transitions.append({"to": chips, "refused": row["reason"]})
+                continue
+            assert row["exit_codes"] and all(
+                c == 77 for c in row["exit_codes"]), row
+            step = run.wait(lambda: run.step_after(row["launch_t"]),
+                            f"a step at {chips} chip(s)")
+            down = step["time"] - row["sigterm_t"]
+            # the signal the decision read, from the trainer it stopped
+            decided = [r for r in run.rows() if r.get("kind") == "decision"
+                       and r["action"] == row["action"]][-1]
+            transitions.append({"to": chips, "action": row["action"],
+                                "exit_codes": row["exit_codes"],
+                                "stop_s": row["stop_s"],
+                                "downtime_s": down,
+                                "first_step": step["step"],
+                                "health": decided.get("health")})
+            log(f"[operator] {tag}: {row['action']} to {chips}: ranks exited "
+                f"{row['exit_codes']} in {row['stop_s']} s; first step "
+                f"({step['step']}) {down:.1f} s after the SIGTERM")
+        last = run.wait(lambda: [r for r in run.rows()
+                                 if r.get("kind") == "decision"
+                                 and r.get("health")][-1:],
+                        "a decision with a trainer scrape")[-1]
+        series = _operator_series(logdir)
+        rc = run.stop()
+    finally:
+        run.kill()
+    rows = run.rows()
+    stop = [r for r in rows if r["kind"] == "stop"]
+    assert rc == 0 and stop and all(c == 77 for c in stop[-1]["exit_codes"]), \
+        (rc, stop)
+    moves = [r for r in rows if r["kind"] != "decision"
+             or r["action"] != "hold"]
+    holds = sum(1 for r in rows if r["kind"] == "decision"
+                and r["action"] == "hold")
+    log(f"[operator] {tag}: autoscale-host0.jsonl: {holds} hold(s) and "
+        + json.dumps([{k: r[k] for k in ("kind", "action", "target",
+                                         "reason", "exit_codes")
+                       if k in r} for r in moves]))
+    log(f"[operator] {tag}: eksml_autoscale_* " + json.dumps(series))
+    log(f"[operator] {tag}: HealthSignal read from the trainer's /metrics "
+        "at each transition's decision and at the last tick: "
+        + json.dumps([t.get("health") for t in transitions
+                      if "action" in t] + [last["health"]]))
+    return {"transitions": transitions, "series": series,
+            "health": last["health"], "stop": stop[-1], "run": run}
+
+
+def phase_operator(workdir: str, device: str = "cuda", cards=None):
+    """The elastic operator (``--mode local``) on a capacity file that
+    goes 1 -> 2 -> 1 GPUs, SMOKE widths.  With two or more cards the
+    ranks are NCCL ranks on the cards.  With one, the wave runs as gloo
+    ranks on the CPU, and on the card a world-1 trainer sees the 1 -> 2
+    decision refused, is stopped by the operator (exit 77) and relaunched
+    by a second one: it resumes from the forced checkpoint and steps."""
+    import torch
+
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cards = torch.cuda.device_count() if cards is None else cards
+    out = {}
+    wave = ((2, "relaunch"), (1, "relaunch"))
+    if device == "cuda" and cards >= 2:
+        out["wave"] = operator_wave(os.path.join(workdir, "operator"),
+                                    "cuda", wave, "cuda")
+        return out
+    log(f"[operator] {cards} card(s): the 1 -> 2 -> 1 wave runs as gloo "
+        "ranks on the CPU (two ranks never share a card)")
+    out["wave"] = operator_wave(os.path.join(workdir, "operator-cpu"),
+                                "cpu", wave, "cpu")
+    if device != "cuda":
+        return out
+    card_dir = os.path.join(workdir, "operator-card")
+    first = operator_wave(card_dir, "cuda", ((2, "refused"), (1, "hold")),
+                          "card")
+    forced = CheckpointManager(card_dir).latest_step()
+    assert forced is not None, "no forced checkpoint on the card"
+    again = OperatorRun(card_dir, "cuda", "--initial-chips", "1")
+    try:
+        launch = again.wait(lambda: [r for r in again.rows()
+                                     if r["kind"] == "launch"],
+                            "a relaunch")[0]
+        step = again.wait(lambda: again.step_after(launch["launch_t"]),
+                          "a step after the relaunch")
+        rc = again.stop()
+    finally:
+        again.kill()
+    stop = [r for r in again.rows() if r["kind"] == "stop"]
+    assert rc == 0 and stop and stop[-1]["exit_codes"] == [77], (rc, stop)
+    assert step["step"] == forced + 1, (step["step"], forced)
+    down = step["time"] - first["stop"]["sigterm_t"]
+    log(f"[operator] card: the world-1 trainer exited "
+        f"{first['stop']['exit_codes']} at its forced checkpoint (step "
+        f"{forced}); a second operator relaunched it and it logged step "
+        f"{step['step']} {down:.1f} s after the SIGTERM; stopped again: "
+        f"{stop[-1]['exit_codes']}")
+    out["card"] = {"refused": first["transitions"], "forced_step": forced,
+                   "first_step": step["step"], "downtime_s": down,
+                   "series": first["series"], "health": first["health"]}
     return out
 
 
@@ -3207,6 +3877,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
+    if "fleet" in phases and "lifecycle" not in phases:
+        p.error("the fleet phase serves the lifecycle phase's checkpoints: "
+                "add lifecycle")
 
     import torch
 
@@ -3231,7 +3904,7 @@ def main(argv=None) -> int:
     # the lifecycle phase reloads into the serve phase's engine and
     # resumes the train phase's run
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-    engine = serve = train = life = dist_out = None
+    engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
     bf16 = serve16 = cascade = variants = observed = None
     try:
@@ -3269,6 +3942,11 @@ def main(argv=None) -> int:
             trainer.close()
             del trainer, batches
             torch.cuda.empty_cache()
+            if "fleet" in phases:
+                fleet = timed(walls, "fleet", phase_fleet, KERNELS,
+                              args.seed, workdir, life["run"])
+            if "operator" in phases:
+                operator = timed(walls, "operator", phase_operator, workdir)
             if "dist" in phases:
                 dist_out = timed(walls, "dist", phase_dist, cfg, KERNELS,
                                  args.seed, train, workdir)
@@ -3276,6 +3954,8 @@ def main(argv=None) -> int:
             engine.close()
             del engine
             torch.cuda.empty_cache()
+        if "operator" in phases and operator is None:
+            operator = timed(walls, "operator", phase_operator, workdir)
         if "ranks" in phases:
             ranks = timed(walls, "ranks", phase_ranks, workdir)
         if "train_reference" in phases:
@@ -3332,6 +4012,7 @@ def main(argv=None) -> int:
                     "serve": serve["launches"][k.name] if serve else None,
                     "train": train["launches"][k.name] if train else None,
                     "lifecycle": life["launches"][k.name] if life else None,
+                    "fleet": fleet["launches"][k.name] if fleet else None,
                     "dist": (dist_out["launches"][k.name] if dist_out
                              else None),
                     "eval": (evaluated["launches"][k.name] if evaluated
@@ -3382,6 +4063,13 @@ def main(argv=None) -> int:
                 "reload_swap_ms")
         log(f"[lifecycle] on {cards}: " + json.dumps(
             {key: life[key] for key in keys}))
+    if fleet is not None:
+        log(f"[fleet] on {cards}: " + json.dumps(
+            {k: v for k, v in fleet.items() if k != "launches"}))
+    if operator is not None:
+        log(f"[operator] on {cards}: " + json.dumps({
+            leg: {k: v for k, v in rec.items() if k != "run"}
+            for leg, rec in operator.items()}))
     if dist_out is not None:
         keys = ("nccl_init_ms", "warm_ms", "replicated", "fsdp")
         log(f"[dist] on {cards}: plain train phase median "

@@ -22,6 +22,8 @@ import threading
 import time
 from typing import Dict, Sequence
 
+from eksml_tpu_torch.fsio import atomic_write_text
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -116,8 +118,7 @@ def _build(names: Sequence[str]) -> Dict[str, BuildResult]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
-        with open(lib + ".log", "w") as f:
-            f.write(out)
+        atomic_write_text(lib + ".log", out)
         # rename last: a concurrent builder never loads a partial file
         os.replace(tmp, lib)
         results[name] = BuildResult(name, lib, seconds, out, False)

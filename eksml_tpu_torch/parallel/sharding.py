@@ -34,7 +34,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from eksml_tpu_torch.config import (SHARDING_DEFAULTS, STRATEGIES,
+from eksml_tpu_torch.config import (SHARDING_DEFAULTS,
+                                    SHARDING_ITEM, STRATEGIES,
                                     knobs_with_defaults)
 from eksml_tpu_torch.parallel.mesh import divisors as _divisors
 
@@ -42,9 +43,6 @@ log = logging.getLogger(__name__)
 
 #: gradient-exchange layouts across slices (TRAIN.SHARDING.EXCHANGE)
 EXCHANGES = ("flat", "hierarchical")
-
-#: where the strategies this port leaves out are planned
-SHARDING_ITEM = "ROADMAP.md Queue 1, item 4 (multi-GPU)"
 
 #: the parameter bytes of R50-FPN Mask-RCNN, which size the combine
 #: threshold when TPU.ALLREDUCE_COMBINE_THRESHOLD_BYTES is 0 (the

@@ -23,8 +23,16 @@ Usage::
     python -m eksml_tpu_torch.serve --random-params --port 0 \\
         --port-file serve.port --config SERVE.MAX_BATCH_DELAY_MS=5
 
-The reference's canary, shadow and promotion parts wait for ROADMAP.md
-Queue 1 item 8.
+    # the serve chart's two tracks on one logdir: the stable track moves
+    # only through the promotion controller's /admin/reload, the canary
+    # chases training; each appends to its own events-host<id>.jsonl
+    python -m eksml_tpu_torch.serve --checkpoint-dir /runs/maskrcnn \\
+        --serve-id stable --config SERVE.RELOAD_POLL_SEC=0
+    python -m eksml_tpu_torch.serve --checkpoint-dir /runs/maskrcnn \\
+        --serve-id canary --config SERVE.RELOAD_POLL_SEC=30
+
+The promotion controller that scores the canary against the stable
+track is ``python -m eksml_tpu_torch.tools.eksml_operator --promote``.
 """
 
 from __future__ import annotations
@@ -64,6 +72,11 @@ def main(argv=None) -> int:
                    help="flush the request span ring here as Chrome-trace "
                         "JSON at drain; requires "
                         "TELEMETRY.TRACING.ENABLED=True")
+    p.add_argument("--serve-id", default="serve",
+                   help="instance id: names the flight-event file "
+                        "(events-host<id>.jsonl) and the recorder's host, so "
+                        "the stable and canary tracks sharing a logdir keep "
+                        "their reload timelines apart")
     p.add_argument("--config", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides")
     args = p.parse_args(argv)
@@ -110,10 +123,12 @@ def main(argv=None) -> int:
 
     reload_mgr = None
     if args.checkpoint_dir:
-        # reload events land next to the trainer's in the logdir
+        # reload events land next to the trainer's in the logdir, in this
+        # track's own file
         telemetry.install(telemetry.FlightRecorder(
-            path=telemetry.events_path_for(args.checkpoint_dir, "serve"),
-            host_id="serve"))
+            path=telemetry.events_path_for(args.checkpoint_dir,
+                                           args.serve_id),
+            host_id=args.serve_id))
         reload_mgr = ReloadManager(
             engine, args.checkpoint_dir, lock=server.lifecycle_lock,
             poll_sec=float(cfg.SERVE.RELOAD_POLL_SEC),
@@ -139,7 +154,11 @@ def main(argv=None) -> int:
     log.info("ready: %d warm shape(s) over %d bucket(s) x %s batch "
              "rung(s) on port %d (params step %s)", n, len(engine.buckets),
              engine.rungs, server.port, engine.params_step)
-    stop.wait()
+    # a timed wait: a signal the kernel hands to another thread of the
+    # process (CUDA's, the HTTP server's) runs its Python handler only when
+    # the main thread next runs bytecode, and an untimed wait never would
+    while not stop.wait(timeout=1.0):
+        pass
     log.info("signal received: draining")
     server.drain()
     if reload_mgr is not None:

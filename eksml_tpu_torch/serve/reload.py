@@ -59,6 +59,10 @@ class ReloadManager:
     (a model ``state_dict``) is injectable for tests; the default is
     ``restore_predict_params``.  ``last_timings`` holds the last
     completed reload's ``verify_ms``, ``restore_ms`` and ``swap_ms``.
+    ``recorder`` (a :class:`FlightRecorder`) takes this manager's flight
+    events; the default is the process's installed recorder.  Two
+    serving tracks in one process (the stable and canary tracks of
+    ``chip_smoke.py``'s fleet phase) each pass their own.
     """
 
     def __init__(self, engine, logdir: str,
@@ -67,7 +71,7 @@ class ReloadManager:
                  is_draining: Optional[Callable[[], bool]] = None,
                  restore_fn: Optional[Callable[[int], object]] = None,
                  check_digest: bool = True,
-                 registry=None):
+                 registry=None, recorder=None):
         self.engine = engine
         self.logdir = logdir
         self.root = os.path.join(logdir, "checkpoints")
@@ -76,6 +80,8 @@ class ReloadManager:
         self._is_draining = is_draining or (lambda: False)
         self._restore_fn = restore_fn or self._restore
         self.check_digest = bool(check_digest)
+        self._event = recorder.record if recorder is not None \
+            else telemetry.event
         # serializes concurrent reload attempts (watcher thread vs the
         # /admin/reload handler): restores are seconds of I/O and two
         # interleaved ones would race the swap ordering
@@ -174,7 +180,7 @@ class ReloadManager:
         if remember and step is not None:
             self._rejected[int(step)] = reason
         log.warning("hot-reload rejected (%s): %s", reason, detail)
-        telemetry.event("serve_reload_rejected", step=step,
+        self._event("serve_reload_rejected", step=step,
                         reason=reason, detail=detail)
         return {"ok": False, "step": step, "reason": reason,
                 "detail": detail}
@@ -237,7 +243,7 @@ class ReloadManager:
                           if s > step}
         log.info("hot-reload: step %s -> %d in %.0f ms (%s)",
                  old_step, step, dt_ms, reason)
-        telemetry.event("serve_reload", step=step,
+        self._event("serve_reload", step=step,
                         previous_step=old_step,
                         duration_ms=round(dt_ms, 1),
                         verification=reason,

@@ -268,7 +268,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         os.makedirs(self.directory, exist_ok=True)
         tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.directory)
-        with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+        # the file lies in a fresh temporary directory: the os.replace of
+        # that directory below is the atomic commit
+        with open(os.path.join(tmp, STATE_FILE), "wb") as f:  # eksml-lint: disable=atomic-write
             torch.save(snap, f)
             f.flush()
             os.fsync(f.fileno())
