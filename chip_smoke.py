@@ -90,7 +90,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 After lifecycle, the serving fleet and the elastic operator:
 
-fleet    — the serve chart's stable and canary tracks (its golden
+fleet    — the GPU serve chart's stable and canary tracks (its golden
              rendering's ``--config``: bf16, one 1344² bucket, rungs 1 and
              4) in this process on the lifecycle phase's checkpoints, each
              with its own engine, server, ReloadManager and flight
@@ -126,6 +126,21 @@ observe — the trainer's telemetry at full width: ``train.main`` in f32
              mask-target call's host time against its kernel; the step
              median with the telemetry layer off and fully on.
 
+charts  — the GPU charts (``charts/{maskrcnn,serve,autoscaler}-gpu``)
+             rendered by ``eksml_tpu_torch.tools.render_charts`` for a
+             one-card install, their container commands run as the pods
+             would (``/efs`` in a workdir, free ports, ``--total-steps``;
+             each change printed): the default f32 chart through
+             ``eksml_tpu_torch.launch`` for 40 steps at 1344² on shapes
+             JPEGs and a stand-in R50 npz (every array loaded), its
+             checkpoint and end-of-run eval; the optimized overlay
+             SIGTERMed after step 3 (the launcher exits 77 after the
+             forced checkpoint) and relaunched (resumes at the next
+             step, runs to the end); the serve chart's stable command on
+             that run (``/healthz`` 200, 4 requests, drain rc 0); the
+             autoscaler's argv through the operator's parser.  Each
+             process's kernel launches, from the line it logs at exit.
+
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -155,7 +170,7 @@ PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "fleet", "operator", "dist", "ranks",
           "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
-          "variants_reference", "observe")
+          "variants_reference", "observe", "charts")
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1513,8 +1528,8 @@ def phase_lifecycle(cfg, kernels, trainer, batches, engine, serve, workdir):
 # phase fleet: the serve chart's two tracks, the load tool, promotion
 # ---------------------------------------------------------------------
 
-#: the serve chart's golden rendering: the stable Deployment's command
-CHART = os.path.join("charts", "golden", "serve__serve.yaml")
+#: the GPU serve chart's golden rendering: the stable Deployment's command
+CHART = os.path.join("charts", "golden-gpu", "serve-gpu__serve.yaml")
 #: requests per closed-loop run: FLEET_PER_WORKER per concurrent worker
 FLEET_CONCURRENCY = (1, 4, 8)
 FLEET_PER_WORKER = 8
@@ -1847,12 +1862,11 @@ def phase_fleet(kernels, seed: int, workdir: str, run: str,
         f"events-hostcanary.jsonl {len(ev['canary'])}, events-hostcd.jsonl "
         f"{[e['kind'] for e in ev['cd']]}, canary-host0.jsonl {verdicts}")
 
-    # the chart's command as a subprocess: only the module, the logdir and
-    # the port changed
+    # the chart's command as a subprocess: only the logdir and the port
+    # changed
     port_file = os.path.join(workdir, "fleet-serve.port")
     argv = [sys.executable] + [
-        "eksml_tpu_torch.serve" if a == "eksml_tpu.serve"
-        else run if a.startswith("/efs/") else a for a in cmd[1:]] + [
+        run if a.startswith("/efs/") else a for a in cmd[1:]] + [
         *VARIANT_BASE, "--port", "0", "--port-file", port_file]
     if device != "cuda":
         argv += ["--device", device]
@@ -1861,16 +1875,19 @@ def phase_fleet(kernels, seed: int, workdir: str, run: str,
 
 
 def chart_subprocess(argv, workdir: str, port_file: str,
-                     budget: float = 600.0):
+                     budget: float = 600.0, log_path: str = None,
+                     tag: str = "fleet"):
     """Start ``argv`` (a serving command), wait for ``/healthz`` 200,
     answer 4 requests, drain on SIGTERM; the process is killed on any
-    failure."""
+    failure.  Returns the readiness time, the answers' latency, the warm
+    shapes, the batches dispatched and the kernel launches the process
+    logged at its exit."""
     import signal
 
     from eksml_tpu_torch.tools import serve_loadtest as lt
 
-    log_path = os.path.join(workdir, "fleet-serve.log")
-    log(f"[fleet] subprocess: {' '.join(argv[1:])}; signals blocked in "
+    log_path = log_path or os.path.join(workdir, "fleet-serve.log")
+    log(f"[{tag}] subprocess: {' '.join(argv[1:])}; signals blocked in "
         "the launching thread (inherited by the child): "
         f"{sorted(int(x) for x in signal.pthread_sigmask(signal.SIG_BLOCK, []))}")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1894,11 +1911,14 @@ def chart_subprocess(argv, workdir: str, port_file: str,
         assert (art["completed"], art["errors"]) == (4, 0), art
         post = lt.fetch_health(url)
         assert post["request_path_compiles"] == 0, post
+        with urllib.request.urlopen(f"{url}/metrics", timeout=10) as r:
+            batches = int(_families(r.read().decode())[
+                "eksml_serve_batches_total"])
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
     except BaseException:
         with open(log_path) as f:
-            log(f"[fleet] subprocess output:\n{f.read()[-4000:]}")
+            log(f"[{tag}] subprocess output:\n{f.read()[-4000:]}")
         raise
     finally:
         if proc.poll() is None:
@@ -1907,12 +1927,16 @@ def chart_subprocess(argv, workdir: str, port_file: str,
     with open(log_path) as f:
         text = f.read()
     assert rc == 0 and "drain complete" in text, (rc, text[-2000:])
-    log(f"[fleet] subprocess /healthz 200 after {ready_s:.1f} s (step "
+    launches = logged_launches(text)
+    log(f"[{tag}] subprocess /healthz 200 after {ready_s:.1f} s (step "
         f"{health['params_step']}, {health['warm_executables']} warm "
-        f"shapes, devices {health['devices']}); 4 requests {_lat(art)}; "
-        f"SIGTERM drained with rc {rc}")
+        f"shapes, devices {health['devices']}); 4 requests {_lat(art)} in "
+        f"{batches} batch(es); SIGTERM drained with rc {rc}; launches "
+        f"{launches}")
     return {"ready_s": ready_s, "params_step": health["params_step"],
-            "latency_ms": art["latency_ms"], "rc": rc}
+            "latency_ms": art["latency_ms"], "rc": rc,
+            "warm_shapes": int(health["warm_executables"]),
+            "batches": batches, "launches": launches}
 
 
 # ---------------------------------------------------------------------
@@ -2655,8 +2679,9 @@ REF_BUCKETS = "PREPROC.BUCKETS=((192,256),(256,192),(256,256))"
 
 def _shape_polygon(cls: int, x, y, w, h, rng) -> list:
     """One shape as a flat COCO polygon: a rectangle, a 16-gon ellipse or
-    a wedge (a quadrilateral: the port's even-odd fill, like the
-    reference's, inverts polygons of an odd vertex count)."""
+    a wedge (a quadrilateral: the reference's even-odd fill inverts
+    polygons of an odd vertex count, and the eval phases hold the port to
+    the reference)."""
     if cls == 1:
         pts = [(x, y), (x + w, y), (x + w, y + h), (x, y + h)]
     elif cls == 2:
@@ -2916,7 +2941,7 @@ def phase_coco(kernels, seed: int, workdir: str, device: str = "cuda"):
     import torch
 
     try:
-        from PIL import Image
+        import PIL  # noqa: F401 — the JPEGs need it
     except ImportError as e:
         log(f"[coco] train.main on a COCO directory was not run: PIL does "
             f"not import on this machine ({e}), so no JPEG can be written "
@@ -2927,16 +2952,8 @@ def phase_coco(kernels, seed: int, workdir: str, device: str = "cuda"):
 
     base = os.path.join(workdir, "coco")
     for split, n, offset in (("train2017", 8, 0), ("val2017", 4, 100)):
-        data, pixels = shapes_coco(n, seed + offset, size=(180, 240),
-                                   id_base=1 + offset)
-        os.makedirs(os.path.join(base, split))
-        for name, img in pixels.items():
-            Image.fromarray(img).save(os.path.join(base, split, name),
-                                      quality=92)
-        os.makedirs(os.path.join(base, "annotations"), exist_ok=True)
-        with open(os.path.join(base, "annotations",
-                               f"instances_{split}.json"), "w") as f:
-            json.dump(data, f)
+        write_shapes_split(base, split, n, seed + offset, size=(180, 240),
+                           id_base=1 + offset)
     run = os.path.join(workdir, "coco_run")
     saved = config.to_dict()      # main overrides the global config
     for k in kernels:
@@ -3863,6 +3880,434 @@ def eval_rank(run: str) -> int:
 
 
 # ---------------------------------------------------------------------
+# phase charts: the GPU charts' rendered commands, run as the pods would
+# ---------------------------------------------------------------------
+
+#: a one-card install of the training chart (``--set``)
+CHARTS_ONE_CARD = {"maskrcnn.gpus": 1, "maskrcnn.gpus_per_node": 1}
+#: steps of each training leg: the chart logs every 20th step
+#: (TRAIN.LOG_PERIOD), so the row at 40 is the mean of steps 21-40
+CHARTS_STEPS = 40
+#: the optimized leg is stopped once /healthz reports this step
+CHARTS_SIGTERM_STEP = 3
+CHARTS_TRAIN_IMAGES = 16
+CHARTS_VAL_IMAGES = 4
+CHARTS_BUDGET = 900.0
+#: the TensorPack R50 layout: (blocks, bottleneck width) per group
+R50_GROUPS = ((3, 64), (4, 128), (6, 256), (3, 512))
+LAUNCH_LINE = "ROIAlign kernel launches in this process: "
+
+
+def write_shapes_split(base: str, split: str, n: int, seed: int,
+                       size=(480, 640), id_base: int = 1) -> None:
+    """The shapes split as a COCO directory under ``base``: JPEGs in
+    ``base/split`` and ``base/annotations/instances_<split>.json`` (needs
+    PIL)."""
+    from PIL import Image
+
+    data, pixels = shapes_coco(n, seed, size=size, id_base=id_base)
+    os.makedirs(os.path.join(base, split))
+    for name, img in pixels.items():
+        Image.fromarray(img).save(os.path.join(base, split, name),
+                                  quality=92)
+    os.makedirs(os.path.join(base, "annotations"), exist_ok=True)
+    with open(os.path.join(base, "annotations",
+                           f"instances_{split}.json"), "w") as f:
+        json.dump(data, f)
+
+
+def write_r50_npz(path: str, seed: int) -> int:
+    """A seeded stand-in for ``ImageNet-R50-AlignPadding.npz`` in the
+    TensorPack layout ``models/backbone_loader.py`` reads, written from
+    the R50 architecture (``R50_GROUPS``), not from the port's state dict:
+    ``conv0/W`` [7, 7, 3, 64] and ``group{g}_block{b}/conv{1,2,3}`` (and
+    ``convshortcut`` in block 0) kernels in HWIO, each conv with its
+    ``bn/gamma``, ``bn/beta``, ``bn/mean/EMA`` and ``bn/variance/EMA``.
+    Returns the count of arrays."""
+    rng = np.random.RandomState(seed)
+    arrays = {}
+
+    def conv(name, k, cin, cout, gamma=(0.8, 1.2)):
+        arrays[f"{name}/W"] = (rng.standard_normal((k, k, cin, cout))
+                               * np.sqrt(2.0 / (k * k * cin))
+                               ).astype(np.float32)
+        arrays[f"{name}/bn/gamma"] = rng.uniform(*gamma, cout).astype(
+            np.float32)
+        arrays[f"{name}/bn/beta"] = rng.uniform(-0.05, 0.05, cout).astype(
+            np.float32)
+        arrays[f"{name}/bn/mean/EMA"] = rng.uniform(-0.05, 0.05, cout
+                                                    ).astype(np.float32)
+        arrays[f"{name}/bn/variance/EMA"] = rng.uniform(
+            0.9, 1.1, cout).astype(np.float32)
+
+    conv("conv0", 7, 3, 64)
+    cin = 64
+    for g, (blocks, width) in enumerate(R50_GROUPS):
+        for b in range(blocks):
+            key = f"group{g}_block{b}"
+            conv(f"{key}/conv1", 1, cin, width)
+            conv(f"{key}/conv2", 3, width, width)
+            # a small last scale per block, as a trained ResNet's: the
+            # residual sum keeps the activations' scale through 16 blocks
+            conv(f"{key}/conv3", 1, width, 4 * width, gamma=(0.05, 0.25))
+            if b == 0:
+                conv(f"{key}/convshortcut", 1, cin, 4 * width)
+            cin = 4 * width
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **arrays)
+    return len(arrays)
+
+
+def chart_container(chart: str, files=(), overrides=None,
+                    release: str = "eksml"):
+    """The workload container of ``chart``'s render (with values files
+    and ``--set`` overrides, installed as ``release``), its pod spec and
+    its document."""
+    import yaml
+
+    from eksml_tpu_torch.tools import render_charts
+
+    docs = [d for d in yaml.safe_load_all(
+        render_charts.render(chart, files, overrides, release)) if d]
+    for d in docs:
+        if d["kind"] == "JobSet":
+            pod = d["spec"]["replicatedJobs"][0]["template"]["spec"][
+                "template"]["spec"]
+            return pod["containers"][0], pod, d
+        if d["kind"] == "Deployment":
+            pod = d["spec"]["template"]["spec"]
+            return pod["containers"][0], pod, d
+    raise AssertionError(f"{chart}: no workload in the render")
+
+
+def chart_train_argv(release: str, files, workdir: str, device: str):
+    """The training chart's command and env for a one-card install as
+    ``release`` (``helm install <release> charts/maskrcnn-gpu -f
+    <files> --set maskrcnn.gpus=1,maskrcnn.gpus_per_node=1``; the release
+    names the run directory), as the pod would run it, with only these
+    changed (each printed): ``/efs``
+    under ``workdir``, ``TELEMETRY.PORT`` and ``COORDINATOR_ADDRESS`` on
+    free ports, ``PROCESS_ID`` the completion index 0 (the downward API's
+    value), ``python3`` this interpreter, ``PYTHONPATH`` the checkout (the
+    image's ``ENV``), ``--total-steps`` appended.  Returns (argv, env, the
+    trainer's --config items, the telemetry port, the logdir)."""
+    c, _, _ = chart_container("charts/maskrcnn-gpu", files, CHARTS_ONE_CARD,
+                              release)
+    cmd = list(c["command"])
+    efs = os.path.join(workdir, "efs")
+    tport, cport = _free_port(), _free_port()
+    changes = [f"python3 -> {sys.executable}", f"/efs -> {efs}",
+               f"TELEMETRY.PORT -> {tport}"]
+    argv = [sys.executable]
+    for a in cmd[1:]:
+        if a.startswith("/efs/"):
+            a = efs + a[len("/efs"):]
+        elif "=/efs/" in a:
+            key, _, path = a.partition("=")
+            a = f"{key}={efs}{path[len('/efs'):]}"
+        elif a.startswith("TELEMETRY.PORT="):
+            a = f"TELEMETRY.PORT={tport}"
+        argv.append(a)
+    items = argv[argv.index("--config") + 1:]
+    argv += list(VARIANT_BASE)
+    if device != "cuda":
+        argv += ["--device", device]
+    argv += ["--total-steps", str(CHARTS_STEPS)]
+    changes.append(f"--total-steps {CHARTS_STEPS} appended")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PROCESS_ID="0")
+    for e in c["env"]:
+        if "value" in e:
+            env[e["name"]] = e["value"]
+    env["COORDINATOR_ADDRESS"] = f"127.0.0.1:{cport}"
+    changes += [f"COORDINATOR_ADDRESS -> 127.0.0.1:{cport}",
+                "PROCESS_ID -> 0 (the completion index)",
+                f"PYTHONPATH -> {here}"]
+    logdir = argv[argv.index("--logdir") + 1]
+    log(f"[charts] release {release}: {' '.join(cmd)}\n[charts]   "
+        "changed: " + "; ".join(changes))
+    return argv, env, items, tport, logdir
+
+
+class ChartPod:
+    """One run of a chart's container command: its own session (a kill
+    ends its ranks too), output to ``log_path``, ``/healthz`` of the
+    trainer's exporter on ``port`` polled for the step."""
+
+    def __init__(self, argv, env, log_path: str, port: int):
+        self.log_path, self.port = log_path, port
+        self.t0 = time.perf_counter()
+        with open(log_path, "w") as f:
+            self.proc = subprocess.Popen(
+                argv, env=env, stdout=f, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+
+    def health(self):
+        try:
+            status, body = _http(self.port, "/healthz")
+        except OSError:
+            return None
+        return json.loads(body) if status in (200, 503) else None
+
+    def wait_step(self, step: int) -> float:
+        """Seconds from the start until /healthz reports ``step`` (0: until
+        it answers)."""
+        deadline = time.monotonic() + CHARTS_BUDGET
+        while time.monotonic() < deadline:
+            h = self.health()
+            if h is not None and (h.get("step") or 0) >= step:
+                return time.perf_counter() - self.t0
+            assert self.proc.poll() is None, \
+                f"exited {self.proc.returncode} before step {step}"
+            time.sleep(0.05)
+        raise AssertionError(f"no step {step} in {CHARTS_BUDGET} s")
+
+    def wait(self) -> int:
+        return self.proc.wait(timeout=CHARTS_BUDGET)
+
+    def text(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+        log(f"[charts] output of {os.path.basename(self.log_path)}:\n"
+            + self.text()[-4000:])
+
+
+def logged_launches(text: str, prefix: str = "") -> dict:
+    """The kernel launch counts a process logged at its exit."""
+    lines = [line for line in text.splitlines()
+             if line.startswith(prefix) and LAUNCH_LINE in line]
+    assert len(lines) == 1, lines
+    return json.loads(lines[0].split(LAUNCH_LINE, 1)[1])
+
+
+def run_train_leg(tag: str, argv, env, port: int, logdir: str,
+                  workdir: str, first: int = 1, sigterm_step=None):
+    """One launch of the training chart's command: the launcher's exit
+    code, the rank's log and the leg's timings (to /healthz reporting
+    step ``first``: the first step this launch trains).  With
+    ``sigterm_step`` the launcher gets SIGTERM (as kubelet sends it to the
+    pod's PID 1) once /healthz reports that step."""
+    import re
+    import signal
+
+    # this leg's rows: the logdir's files grow across legs
+    files = [os.path.join(logdir, name)
+             for name in ("metrics.jsonl", "events-host0.jsonl")]
+    since = [len(_rows(f)) if os.path.exists(f) else 0 for f in files]
+    pod = ChartPod(argv, env, os.path.join(workdir, f"charts-{tag}.log"),
+                   port)
+    out = {}
+    try:
+        out["healthz_s"] = pod.wait_step(0)     # the exporter is up
+        out["first_step_s"] = pod.wait_step(first)
+        if sigterm_step is not None:
+            pod.wait_step(sigterm_step)
+            t_term = time.perf_counter()
+            pod.proc.send_signal(signal.SIGTERM)
+            rc = pod.wait()
+            out["sigterm_to_exit_s"] = time.perf_counter() - t_term
+        else:
+            rc = pod.wait()
+        out["wall_s"] = time.perf_counter() - pod.t0
+    except BaseException:
+        pod.kill()
+        raise
+    text = pod.text()
+    out["rc"] = rc
+    keep = re.compile(r"WARNING|ERROR|Traceback|loaded \d+/|resuming|"
+                      r"preempted|step \d+/\d+ loss|training complete|"
+                      + re.escape(LAUNCH_LINE))
+    log(f"[charts] {tag}: the launcher's lines of note:\n" + "\n".join(
+        line for line in text.splitlines() if keep.search(line)
+        and "absl" not in line)[-6000:])
+    rows, events = (_rows(f)[n:] for f, n in zip(files, since))
+    out["rows"] = rows
+    out["compile_ms"] = [e["compile_ms"] for e in events
+                         if e.get("kind") == "compile_done"]
+    out["launches"] = logged_launches(text, "[rank 0] ")
+    m = re.search(r"\[rank 0\] .*resuming from checkpoint step (\d+)", text)
+    out["resumed_from"] = int(m.group(1)) if m else None
+    m = re.search(r"\[rank 0\] .*preempted at step (\d+)", text)
+    out["preempted_at"] = int(m.group(1)) if m else None
+    m = re.search(r"\[rank 0\] .*backbone weights: loaded (\d+)/(\d+)", text)
+    out["backbone"] = (int(m.group(1)), int(m.group(2))) if m else None
+    out["text"] = text
+    log(f"[charts] {tag}: rc {rc}, /healthz up {out['healthz_s']:.1f} s, "
+        f"first step (/healthz step {first}) {out['first_step_s']:.1f} s "
+        f"after the launcher started; its first step (compile_done) "
+        f"{out['compile_ms']} ms; logged rows "
+        + json.dumps([{k: r[k] for k in ("step", "total_loss",
+                                         "step_time_ms") if k in r}
+                      for r in rows])
+        + f"; launches {out['launches']}; wall {out['wall_s']:.1f} s")
+    return out
+
+
+def _eval_batches(items, base: str) -> int:
+    """Batches of the trainer's end-of-run eval on ``base``'s val2017
+    under the chart's config (the evaluator's own plan)."""
+    from eksml_tpu_torch.data.coco import CocoDataset
+    from eksml_tpu_torch.evalcoco.runner import _plan
+
+    cfg = variant_config(*items, training=True)
+    records = CocoDataset(base, cfg.DATA.VAL).records(skip_empty=False)
+    return len(_plan(cfg, records, len(records), 1,
+                     max(1, int(cfg.TEST.EVAL_BATCH_SIZE))))
+
+
+def _check_leg_launches(kernels, leg, steps: int, eval_batches: int,
+                        tag: str) -> None:
+    got = leg["launches"]
+    want = {kernels.fwd.name: 3 * steps + 2 * eval_batches,
+            kernels.bwd.name: 2 * steps, kernels.copy.name: 8 * steps}
+    assert got == want, (tag, got, want)
+
+
+def _check_serve_launches(kernels, served) -> None:
+    """Two forwards per warmed shape and per dispatched batch."""
+    want = {kernels.fwd.name: 2 * (served["warm_shapes"]
+                                   + served["batches"]),
+            kernels.bwd.name: 0, kernels.copy.name: 0}
+    assert served["launches"] == want, (served, want)
+
+
+def phase_charts(kernels, seed: int, workdir: str, device: str = "cuda"):
+    """The GPU charts' rendered commands for a one-card install
+    (``gpus=1, gpus_per_node=1``), run as the pods would
+    (``chart_train_argv`` lists what changes): the default (float32)
+    training chart through ``eksml_tpu_torch.launch`` for
+    ``CHARTS_STEPS`` steps on the shapes COCO split and a stand-in R50
+    npz (every array loaded), its checkpoint and end-of-run eval; the
+    optimized overlay stopped by SIGTERM (exit 77 after the forced
+    checkpoint) and relaunched (resumes at that step + 1, runs to the
+    end); the serve chart's stable command on that run (``/healthz``
+    200, 4 requests, drain); the autoscaler chart's argv through the
+    operator's parser, with the kubectl commands a transition issues."""
+    from eksml_tpu_torch.resilience.autoscale import topology_ladder
+    from eksml_tpu_torch.tools import eksml_operator as op
+
+    out = {}
+    data = os.path.join(workdir, "efs", "data")
+    t0 = time.perf_counter()
+    write_shapes_split(data, "train2017", CHARTS_TRAIN_IMAGES, seed)
+    write_shapes_split(data, "val2017", CHARTS_VAL_IMAGES, seed + 100,
+                       id_base=1001)
+    n_arrays = write_r50_npz(os.path.join(
+        data, "pretrained-models", "ImageNet-R50-AlignPadding.npz"), seed)
+    log(f"[charts] staged {data}: shapes train2017 ({CHARTS_TRAIN_IMAGES} "
+        f"JPEGs), val2017 ({CHARTS_VAL_IMAGES}), a stand-in R50 npz of "
+        f"{n_arrays} arrays, in {time.perf_counter() - t0:.1f} s")
+
+    # the default chart: float32, batch 1
+    argv, env, items, port, logdir = chart_train_argv("maskrcnn", (),
+                                                      workdir, device)
+    f32 = run_train_leg("f32", argv, env, port, logdir, workdir)
+    assert f32["rc"] == 0, (f32["rc"], f32["text"][-3000:])
+    assert f32["backbone"] == (n_arrays, n_arrays), f32["backbone"]
+    steps = [r["step"] for r in f32["rows"] if "total_loss" in r]
+    assert steps == [20, CHARTS_STEPS], steps
+    assert all(np.isfinite(r["total_loss"]) for r in f32["rows"]
+               if "total_loss" in r)
+    assert any("val/bbox/AP" in r for r in f32["rows"]), f32["rows"]
+    assert os.path.isdir(os.path.join(logdir, "checkpoints",
+                                      str(CHARTS_STEPS)))
+    _check_leg_launches(kernels, f32, CHARTS_STEPS,
+                        _eval_batches(items, data), "f32")
+    out["f32"] = {k: f32[k] for k in ("healthz_s", "first_step_s",
+                                      "compile_ms", "wall_s", "launches")}
+    out["f32"]["step_time_ms"] = [r["step_time_ms"] for r in f32["rows"]
+                                  if "step_time_ms" in r]
+
+    # the optimized overlay: SIGTERM, exit 77, relaunch, resume
+    argv, env, items, port, logdir = chart_train_argv(
+        "maskrcnn-optimized", ("values-optimized.yaml",), workdir, device)
+    stopped = run_train_leg("optimized", argv, env, port, logdir, workdir,
+                            sigterm_step=CHARTS_SIGTERM_STEP)
+    assert stopped["rc"] == 77, (stopped["rc"], stopped["text"][-3000:])
+    assert stopped["backbone"] == (n_arrays, n_arrays), stopped["backbone"]
+    ck = stopped["preempted_at"]
+    assert ck is not None and ck >= CHARTS_SIGTERM_STEP, ck
+    assert os.path.isdir(os.path.join(logdir, "checkpoints", str(ck)))
+    _check_leg_launches(kernels, stopped, ck, 0, "optimized")
+    again = run_train_leg("optimized-relaunch", argv, env, port, logdir,
+                          workdir, first=ck + 1)
+    assert again["rc"] == 0, (again["rc"], again["text"][-3000:])
+    assert again["resumed_from"] == ck, (again["resumed_from"], ck)
+    steps = [r["step"] for r in again["rows"] if "total_loss" in r]
+    assert steps[0] > ck and steps[-1] == CHARTS_STEPS, steps
+    _check_leg_launches(kernels, again, CHARTS_STEPS - ck,
+                        _eval_batches(items, data), "optimized-relaunch")
+    out["optimized"] = {
+        "first_step_s": stopped["first_step_s"],
+        "compile_ms": stopped["compile_ms"], "checkpoint_step": ck,
+        "sigterm_to_exit_s": stopped["sigterm_to_exit_s"],
+        "relaunch_first_step_s": again["first_step_s"],
+        "relaunch_compile_ms": again["compile_ms"],
+        "step_time_ms": [r["step_time_ms"] for r in again["rows"]
+                         if "step_time_ms" in r],
+        "launches": [stopped["launches"], again["launches"]]}
+    log(f"[charts] optimized: SIGTERM after step {CHARTS_SIGTERM_STEP} -> "
+        f"exit 77 in {stopped['sigterm_to_exit_s']:.1f} s (forced "
+        f"checkpoint {ck}); relaunch resumed at {ck + 1}, its first step "
+        f"{again['first_step_s']:.1f} s after the launcher started")
+
+    # the serve chart's stable track on the optimized run
+    c, _, _ = chart_container("charts/serve-gpu")
+    cmd = list(c["command"])
+    port_file = os.path.join(workdir, "charts-serve.port")
+    sargv = [sys.executable] + [
+        logdir if a.startswith("/efs/") else a for a in cmd[1:]] + [
+        *VARIANT_BASE, "--port", "0", "--port-file", port_file]
+    if device != "cuda":
+        sargv += ["--device", device]
+    log(f"[charts] serve: {' '.join(cmd)}\n[charts]   changed: "
+        f"python3 -> {sys.executable}; --checkpoint-dir -> {logdir}; "
+        "--port 0 --port-file appended")
+    served = chart_subprocess(sargv, workdir, port_file,
+                              log_path=os.path.join(workdir,
+                                                    "charts-serve.log"),
+                              tag="charts")
+    _check_serve_launches(kernels, served)
+    out["serve"] = {k: served[k] for k in ("ready_s", "params_step",
+                                           "latency_ms", "launches",
+                                           "batches", "warm_shapes")}
+
+    # the autoscaler chart: its argv through the operator's parser
+    c, _, dep = chart_container("charts/autoscaler-gpu")
+    args = op.build_parser().parse_args(c["command"][3:])
+    _, _, js = chart_container("charts/maskrcnn-gpu")
+    assert (args.mode, args.capacity_resource) == ("kubectl",
+                                                   "nvidia.com/gpu")
+    assert (args.jobset, args.namespace) == (
+        js["metadata"]["name"], js["metadata"]["namespace"])
+    acfg = variant_config(*args.config)
+    options = tuple(acfg.RESILIENCE.AUTOSCALE.CHIP_OPTIONS)
+    cmds = {t.chips: op.kubectl_transition_cmds(args.jobset, args.namespace,
+                                                t)
+            for t in topology_ladder(options, strategy="replicated")}
+    assert sorted(cmds) == sorted(options), cmds
+    log(f"[charts] autoscaler: {' '.join(c['command'])}\n[charts]   a "
+        "transition's kubectl commands (no cluster here): " + json.dumps(
+            {n: [" ".join(x) for x in v] for n, v in cmds.items()}))
+    out["autoscaler_options"] = list(options)
+
+    out["launches"] = {k.name: sum(leg["launches"][k.name] for leg in (
+        f32, stopped, again, served)) for k in kernels}
+    return out
+
+
+# ---------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3906,7 +4351,7 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
-    bf16 = serve16 = cascade = variants = observed = None
+    bf16 = serve16 = cascade = variants = observed = charts = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -3983,6 +4428,9 @@ def main(argv=None) -> int:
                 walls, "observe", phase_observe, KERNELS, args.seed,
                 workdir, train["batches"][:2] if train else
                 _synthetic_batches(train_config(), args.seed, BATCH, 2))
+        if "charts" in phases:
+            charts = timed(walls, "charts", phase_charts, KERNELS, args.seed,
+                           workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s; "
@@ -4031,7 +4479,9 @@ def main(argv=None) -> int:
                         cascade["predict_launches"][k.name] if cascade
                         else None),
                     "observe": (observed["launches"][k.name] if observed
-                                else None)},
+                                else None),
+                    "charts": (charts["launches"][k.name] if charts
+                               else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -4117,6 +4567,9 @@ def main(argv=None) -> int:
             "mask_target_call": observed["mask_target_call"],
             "profiler_windows_seen": observed["profiler_windows"],
             "overhead": observed["overhead"]}))
+    if charts is not None:
+        log(f"[charts] on {cards}: " + json.dumps(
+            {k: v for k, v in charts.items() if k != "launches"}))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

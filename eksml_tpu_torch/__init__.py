@@ -10,5 +10,6 @@ Entry points (``Trainer``, ``python -m eksml_tpu_torch.train``,
 ``InferenceEngine``, ``OfflinePredictor``, ``ServingServer``,
 ``python -m eksml_tpu_torch.serve``) run on ``device="cuda"`` unless the
 caller passes ``device="cpu"``; without a CUDA device they raise instead
-of falling back.
+of falling back.  On a GPU node ``python -m eksml_tpu_torch.launch``
+starts one training rank per GPU (the ``charts/*-gpu`` charts run it).
 """

@@ -12,7 +12,12 @@ import numpy as np
 
 def polygon_fill(poly_xy: np.ndarray, height: int, width: int) -> np.ndarray:
     """Rasterize one polygon (``[N, 2]`` float xy) with the even-odd
-    rule at pixel centers (x + 0.5, y + 0.5)."""
+    rule at pixel centers (x + 0.5, y + 0.5).
+
+    An edge that does not cross a pixel row counts for no pixel of it.
+    The reference marks such an edge ``+inf`` and so counts it to the
+    right of every pixel, which fills a polygon of an odd vertex count
+    inside out; at an even count the two agree byte for byte."""
     ys = np.arange(height, dtype=np.float64) + 0.5
     xs = np.arange(width, dtype=np.float64) + 0.5
     px = poly_xy[:, 0]
@@ -25,7 +30,7 @@ def polygon_fill(poly_xy: np.ndarray, height: int, width: int) -> np.ndarray:
     with np.errstate(divide="ignore", invalid="ignore"):
         t = (y - py[None, :]) / (qy[None, :] - py[None, :])
     xcross = px[None, :] + t * (qx[None, :] - px[None, :])  # [H, V]
-    xcross = np.where(cond, xcross, np.inf)
+    xcross = np.where(cond, xcross, -np.inf)
     crossings = (xcross[:, None, :] > xs[None, :, None]).sum(axis=2)
     return (crossings % 2 == 1).astype(np.uint8)
 

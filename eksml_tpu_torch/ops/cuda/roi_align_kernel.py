@@ -268,6 +268,10 @@ class RoiAlignKernels:
     def __iter__(self):
         return iter((self.fwd, self.bwd, self.copy))
 
+    def launch_counts(self) -> Dict[str, int]:
+        """Each kernel's launches in this process, by name."""
+        return {k.name: k.launches for k in self}
+
     def load(self) -> None:
         """Build and load every kernel's library now, not at its first
         launch (a collective under a process group: the first launch of

@@ -38,6 +38,7 @@ track is ``python -m eksml_tpu_torch.tools.eksml_operator --promote``.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import signal
 import sys
@@ -46,7 +47,7 @@ import threading
 log = logging.getLogger("eksml_tpu_torch.serve")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m eksml_tpu_torch.serve",
         description=__doc__.splitlines()[0])
@@ -79,6 +80,11 @@ def main(argv=None) -> int:
                         "their reload timelines apart")
     p.add_argument("--config", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -91,6 +97,7 @@ def main(argv=None) -> int:
     from eksml_tpu_torch import telemetry
     from eksml_tpu_torch.config import config, finalize_configs
     from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.ops.roi_align import KERNELS
     from eksml_tpu_torch.serve.batcher import MicroBatcher
     from eksml_tpu_torch.serve.engine import InferenceEngine
     from eksml_tpu_torch.serve.reload import ReloadManager
@@ -166,6 +173,8 @@ def main(argv=None) -> int:
     engine.close()
     if tracer is not None and args.trace_file:
         tracer.flush()
+    log.info("ROIAlign kernel launches in this process: %s",
+             json.dumps(KERNELS.launch_counts()))
     return 0
 
 

@@ -6,5 +6,7 @@
 - :mod:`eksml_operator` — the elastic autoscaling operator (capacity +
   goodput → topology, relaunching ``python -m eksml_tpu_torch.train``
   ranks through the forced checkpoint) and, with ``--promote``, the
-  canary promotion controller.
+  canary promotion controller;
+- :mod:`render_charts` — the GPU charts rendered without helm, held to
+  their goldens in ``charts/golden-gpu/``.
 """

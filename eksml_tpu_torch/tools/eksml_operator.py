@@ -75,6 +75,7 @@ import time
 from dataclasses import asdict, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from eksml_tpu_torch.launch import RankGroup, job_exit_code  # noqa: F401
 from eksml_tpu_torch.config import (RESILIENCE_AUTOSCALE_DEFAULTS,
                                     SHARDING_DEFAULTS, config,
                                     knobs_with_defaults)
@@ -289,28 +290,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def job_exit_code(codes: Sequence[Optional[int]],
-                  preempt_code: int) -> Optional[int]:
-    """One exit code for the ranks of one job.
-
-    Every rank agrees on a preemption (the forced checkpoint is taken at
-    the same step on all of them), so the job is resumable only if EVERY
-    rank exited ``preempt_code``, and done only if every rank exited 0.
-    Anything else is a failure: the first rank's code that is neither
-    (a crash, or a signal's negative code), else 1 for a mix of 0 and
-    ``preempt_code``.  Rank 0 alone proves nothing."""
-    if not codes:
-        return None
-    if all(c == preempt_code for c in codes):
-        return preempt_code
-    if all(c == 0 for c in codes):
-        return 0
-    for c in codes:
-        if c not in (0, preempt_code):
-            return c if c is not None else 1
-    return 1
-
-
 class LocalTrainerActuator:
     """Owns the ranks of one ``python -m eksml_tpu_torch.train`` job.
 
@@ -341,10 +320,8 @@ class LocalTrainerActuator:
         self.preempt_exit_code = int(config.RESILIENCE.PREEMPT_EXIT_CODE)
         self.extra_env = dict(extra_env or {})
         self.launches = 0
-        # the ranks' exit codes at the last stop, and when its SIGTERM went
-        self.last_exit_codes: List[Optional[int]] = []
-        self.last_sigterm_t: Optional[float] = None
-        self._procs: List[subprocess.Popen] = []
+        self._ranks = RankGroup(stop_budget=self.stop_budget,
+                                preempt_exit_code=self.preempt_exit_code)
 
     def refusal(self, topology: Topology) -> Optional[str]:
         """Why ``topology`` cannot launch here, or None."""
@@ -388,30 +365,34 @@ class LocalTrainerActuator:
             raise RuntimeError("launch while the previous job runs")
         self.launches += 1
         port = free_port()
-        cmd = self.command(topology)
-        paths = []
-        for rank in range(topology.chips):
-            path = os.path.join(
-                self.logdir,
-                f"operator-train-{self.launches}-rank{rank}.log")
-            with open(path, "a") as logf:  # the child inherits the fd
-                self._procs.append(subprocess.Popen(
-                    cmd, env=self.environment(topology, rank, port),
-                    stdout=logf, stderr=subprocess.STDOUT, cwd=REPO))
-            paths.append(path)
+        paths = [os.path.join(
+            self.logdir, f"operator-train-{self.launches}-rank{rank}.log")
+            for rank in range(topology.chips)]
+        self._ranks.start(
+            self.command(topology),
+            [self.environment(topology, rank, port)
+             for rank in range(topology.chips)], logs=paths, cwd=REPO)
         return paths
 
     @property
     def running(self) -> bool:
-        return any(p.poll() is None for p in self._procs)
+        return self._ranks.running
+
+    @property
+    def last_exit_codes(self) -> List[Optional[int]]:
+        """Each rank's exit code at the last stop."""
+        return self._ranks.last_exit_codes
+
+    @property
+    def last_sigterm_t(self) -> Optional[float]:
+        """When the last stop's SIGTERM went (wall clock)."""
+        return self._ranks.last_sigterm_t
 
     def poll(self) -> Optional[int]:
         """None while every rank runs (or before launch).  When any rank
         has ended on its own the job has ended: the rest are stopped
         (:meth:`stop`) and the job's exit code is answered."""
-        if not self._procs or all(p.poll() is None for p in self._procs):
-            return None
-        return self.stop()
+        return self._ranks.poll()
 
     def stop(self, budget: Optional[float] = None) -> Optional[int]:
         """SIGTERM every running rank → wait: the forced-checkpoint path.
@@ -419,33 +400,7 @@ class LocalTrainerActuator:
         ``stop_budget``) is SIGKILLed; every rank is reaped.  Returns
         :func:`job_exit_code` of the ranks (None before any launch);
         ``last_exit_codes`` keeps each rank's."""
-        if not self._procs:
-            return None
-        budget = self.stop_budget if budget is None else float(budget)
-        self.last_sigterm_t = time.time()
-        for p in self._procs:
-            if p.poll() is None:
-                p.send_signal(signal.SIGTERM)
-        deadline = time.monotonic() + budget
-        for p in self._procs:
-            try:
-                p.wait(timeout=max(0.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                pass
-        late = [p for p in self._procs if p.poll() is None]
-        if late:
-            log.warning("%d rank(s) ignored SIGTERM for %.0fs — SIGKILL",
-                        len(late), budget)
-            for p in late:
-                p.kill()
-        for p in self._procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                pass
-        self.last_exit_codes = [p.poll() for p in self._procs]
-        self._procs = []
-        return job_exit_code(self.last_exit_codes, self.preempt_exit_code)
+        return self._ranks.stop(budget)
 
 
 def kubectl_transition_cmds(jobset: str, namespace: str,

@@ -329,6 +329,16 @@ def bank_image(bank: Dict, row: Dict) -> np.ndarray:
                      [(int(row["h"]), int(row["w"]))])
 
 
+def _score_drift(sa: float, sb: float) -> float:
+    """One same-class rank's drift: 0 for equal scores, two ``-inf`` (an
+    invalid row on both sides) included, else ``|sa - sb|`` capped at 1.
+    The reference subtracts first, so two ``-inf`` give ``nan`` and
+    ``min(1.0, nan)`` scores them 1.0."""
+    if sa == sb:
+        return 0.0
+    return min(1.0, abs(sa - sb))
+
+
 def detection_drift(a: Dict, b: Dict) -> float:
     """Output disagreement between two responses for ONE request,
     in [0, 1]; exactly 0.0 when the params are identical.
@@ -349,8 +359,7 @@ def detection_drift(a: Dict, b: Dict) -> float:
             return 0.0
         per_rank = [
             1.0 if ra["classes"][i] != rb["classes"][i]
-            else min(1.0, abs(float(ra["scores"][i])
-                              - float(rb["scores"][i])))
+            else _score_drift(float(ra["scores"][i]), float(rb["scores"][i]))
             for i in range(k)]
         return float(np.mean(per_rank))
     da, db = a.get("detections", []), b.get("detections", [])

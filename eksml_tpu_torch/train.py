@@ -1377,6 +1377,7 @@ def main(argv=None) -> int:
     from eksml_tpu_torch.config import config, config_from_env, finalize_configs
     from eksml_tpu_torch.data.coco import CocoDataset
     from eksml_tpu_torch.data.loader import DetectionLoader, SyntheticDataset
+    from eksml_tpu_torch.ops.roi_align import KERNELS
     from eksml_tpu_torch.parallel.distributed import (initialize_from_env,
                                                       shutdown)
 
@@ -1455,6 +1456,8 @@ def main(argv=None) -> int:
         finally:
             if started:
                 shutdown()
+            log.info("ROIAlign kernel launches in this process: %s",
+                     json.dumps(KERNELS.launch_counts()))
     return 0
 
 

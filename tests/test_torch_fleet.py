@@ -100,17 +100,18 @@ def test_detection_drift_equals_the_reference():
               for d in da[:nb]] + _dets(rng, max(0, nb - na))
         pairs += [({"detections": da}, {"detections": db}),
                   ({"detections": da}, {"detections": list(da)})]
-    # rows a predict marks invalid score -inf: two identical such answers
-    # drift 1.0 in both packages (abs(-inf - -inf) is nan, and
-    # min(1.0, nan) is 1.0), a fault they share (ROADMAP.md Queue 3)
+    # rows a predict marks invalid score -inf: the reference scores two
+    # identical such answers 1.0 (abs(-inf - -inf) is nan, and
+    # min(1.0, nan) is 1.0); the port compares equal scores first and
+    # gives 0, as for any two identical answers (a deliberate difference)
     dead = {"scores": [float("-inf")] * 4, "classes": [1, 2, 3, 4],
             "boxes": [[0.0, 0.0, 1.0, 1.0]] * 4}
     pairs.append(({"raw_top": dead}, {"raw_top": dead}))
     got = [t_lt.detection_drift(a, b) for a, b in pairs]
     want = [j_lt.detection_drift(a, b) for a, b in pairs]
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got[:-1], want[:-1], rtol=0, atol=1e-12)
     assert 0.0 < max(got) <= 1.0 and min(got) == 0.0
-    assert got[-1] == want[-1] == 1.0
+    assert got[-1] == 0.0 and want[-1] == 1.0
 
 
 def test_bank_images_and_artifact_naming_equal_the_reference(tmp_path):
