@@ -126,6 +126,19 @@ observe — the trainer's telemetry at full width: ``train.main`` in f32
              mask-target call's host time against its kernel; the step
              median with the telemetry layer off and fully on.
 
+roofline — the training step's H100 roofline (``profiling/predict.py``)
+             through ``python -m eksml_tpu_torch.tools.bench``'s rungs in
+             this process, on the train phases' autotuned thread: the f32
+             and the bf16 + REMAT steps at 1344², batch 4, and the
+             ladder's ``1344_b8_remat`` rung.  Each: step 1 and the
+             median step, the counted FLOPs and MFU, the predicted step
+             by section and by component beside the observe phase's
+             device-time shares, the predicted liveness peak (with its
+             largest tensors) against ``torch.cuda.max_memory_allocated``,
+             the kernels' launches.  Then ``tools/eval_ckpt.py`` on the
+             lifecycle run's newest checkpoint over 8 shapes JPEGs, its
+             AP equal to ``run_evaluation``'s on the same weights.
+
 charts  — the GPU charts (``charts/{maskrcnn,serve,autoscaler}-gpu``)
              rendered by ``eksml_tpu_torch.tools.render_charts`` for a
              one-card install, their container commands run as the pods
@@ -166,15 +179,17 @@ import urllib.request
 
 import numpy as np
 
+# the kernels' closed form (footprints, bytes and operations, the bound
+# on the data-sheet peaks), shared with the step's roofline
+from eksml_tpu_torch.profiling.predict import (  # noqa: F401
+    F32_FLOPS_PER_S, HBM_BYTES_PER_S, bound_of, bytes_and_ops, footprints,
+    fpn_levels, roi_footprint, touched_pixels)
+
 PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "fleet", "operator", "dist", "ranks",
           "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
-          "variants_reference", "observe", "charts")
-
-# NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+          "variants_reference", "observe", "roofline", "charts")
 
 # predict shapes at the 1344² canvas: P2..P5 and the two ROIAlign calls
 CANVAS = 1344
@@ -318,69 +333,6 @@ def mask_target_inputs(rng: np.random.RandomState, n: int,
             rois[:, None, :].astype(np.float32))
 
 
-def fpn_levels(rois: np.ndarray, n_levels: int) -> np.ndarray:
-    """Level index (0 = P2) of each ROI of ``rois`` [..., 4] by the
-    kernels' FPN rule over ``n_levels`` levels."""
-    from eksml_tpu_torch.ops.roi_align import assign_fpn_levels
-
-    import torch
-
-    lv = assign_fpn_levels(torch.from_numpy(rois.reshape(-1, 4)),
-                           max_level=1 + n_levels).numpy() - 2
-    return lv.reshape(rois.shape[:-1])
-
-
-def roi_footprint(roi: np.ndarray, out_size: int, sampling: int, hw,
-                  stride: int):
-    """(rows, columns) of one ROI on its level's map of size ``hw`` =
-    (H, W) at ``stride``: the map rows and columns that a tap of nonzero
-    weight of its samples reaches inside the map, sorted, each at most
-    2·out·s long, in the kernels' float32 arithmetic.  The backward
-    changes exactly the pixels rows × columns; the footprint design
-    issues one reduction per such pixel and channel group."""
-    x1, y1, x2, y2 = np.asarray(roi, np.float32) * np.float32(1.0 / stride)
-    frac = ((np.arange(sampling, dtype=np.float32) + np.float32(0.5))
-            / np.float32(sampling))
-    grid = (np.arange(out_size, dtype=np.float32)[:, None]
-            + frac[None, :]).reshape(-1)
-
-    def axis(lo, hi, n):
-        size = max(hi - lo, np.float32(1e-4)) / np.float32(out_size)
-        v = (lo - np.float32(0.5)) + grid * size
-        v0 = np.floor(v)
-        w1 = v - v0
-        w0 = np.float32(1.0) - w1
-        pix = np.concatenate([v0[w0 != 0], (v0 + 1)[w1 != 0]])
-        return np.unique(pix[(pix >= 0) & (pix <= n - 1)]).astype(np.int64)
-
-    return axis(y1, y2, hw[0]), axis(x1, x2, hw[1])
-
-
-def footprints(rois: np.ndarray, out_size: int, sampling: int, sizes,
-               strides):
-    """(image, level index, rows, columns) of every ROI of ``rois``
-    [B, N, 4] on the levels ``sizes`` [(H, W), ...] at ``strides``."""
-    levels = fpn_levels(rois, len(strides))
-    return [(bi, lv, *roi_footprint(rois[bi, ri], out_size, sampling,
-                                    sizes[lv], strides[lv]))
-            for bi in range(rois.shape[0]) for ri in range(rois.shape[1])
-            for lv in [levels[bi, ri]]]
-
-
-def touched_pixels(rois: np.ndarray, out_size: int, sampling: int,
-                   sizes, strides) -> int:
-    """Map pixels (per channel) that the taps of a multilevel ROIAlign
-    call on ``rois`` [B, N, 4] touch with nonzero weight at least once,
-    counted on this data; the levels are ``sizes`` [(H, W), ...] at
-    ``strides``."""
-    touched = [[np.zeros(hw, bool) for hw in sizes]
-               for _ in range(rois.shape[0])]
-    for bi, lv, rows, cols in footprints(rois, out_size, sampling, sizes,
-                                         strides):
-        touched[bi][lv][np.ix_(rows, cols)] = True
-    return sum(int(t.sum()) for per_b in touched for t in per_b)
-
-
 def forward_reads(rois: np.ndarray, out_size: int, sampling: int, sizes,
                   strides):
     """Map pixels (per channel) that one forward call on ``rois``
@@ -407,37 +359,6 @@ def backward_reductions(rois: np.ndarray, out_size: int, sampling: int,
                                                 sizes, strides))
     taps = rois.shape[0] * rois.shape[1] * out_size ** 2 * sampling ** 2 * 4
     return fp, taps * channels
-
-
-def bytes_and_ops(rois: np.ndarray, out_size: int, sampling: int,
-                  esize: int, backward: bool = False, sizes=None,
-                  strides=LEVEL_STRIDES, channels: int = CHANNELS):
-    """Least bytes and the operations (a multiply and an add per tap per
-    channel) of one multilevel ROIAlign call on ``rois`` [B, N, 4] over
-    levels ``sizes`` [(H, W), ...] at ``strides`` (default: P2..P5 of the
-    canvas) with ``channels`` channels.  Forward: each map pixel the taps
-    touch, read once, plus the output written once, in the map's dtype.
-    Backward: the output gradient read once in its dtype, plus each
-    touched accumulator pixel read and written once in float32."""
-    if sizes is None:
-        sizes = [(CANVAS // s, CANVAS // s) for s in strides]
-    b, n = rois.shape[:2]
-    pixels = touched_pixels(rois, out_size, sampling, sizes, strides)
-    out_elems = b * n * out_size * out_size * channels
-    if backward:
-        nbytes = out_elems * esize + pixels * channels * 4 * 2
-    else:
-        nbytes = pixels * channels * esize + out_elems * esize
-    ops = out_elems * sampling * sampling * 4 * 2
-    return nbytes, ops
-
-
-def bound_of(nbytes: int, ops: int):
-    """(bound ms, what bounds it) on the data-sheet peaks."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def time_ms(fn, iters: int, warmup: int) -> float:
@@ -856,7 +777,8 @@ def _backward_call(kernel, feats, rois_np, rois, g, call, set_name,
         f"{lo:.4f}, max {hi:.4f}); device-only (torch.profiler) "
         f"{_ms_text(profiled)}")
     nbytes, ops = bytes_and_ops(rois_np, out_size, 2, g.element_size(),
-                                backward=True)
+                                backward=True, sizes=sizes,
+                                strides=LEVEL_STRIDES, channels=CHANNELS)
     rec = _record("train", f"{call} {set_name}" if set_name != "random"
                   else call, dtype, out_size, b * n, max(errs),
                   ms, plain_ms, None, nbytes, ops)
@@ -3831,6 +3753,168 @@ def phase_observe(kernels, seed: int, workdir: str, batches,
     return out
 
 
+#: the roofline phase's points: (label, bench rung, bench flags, the
+#: observe phase's capture at the same point); the first two are the
+#: train and train_bf16 phases' shapes (warm), the last is the ladder's
+#: headline rung
+ROOFLINE_POINTS = (
+    ("f32", "1344_b4", ("--precision", "float32"), "attribution"),
+    ("bf16_remat", "1344_b4", ("--precision", "bfloat16", "--remat", "1"),
+     "bf16"),
+    ("1344_b8_remat", "1344_b8_remat", ("--precision", "bfloat16"), None),
+)
+ROOFLINE_STEPS = 10
+ROOFLINE_EVAL_IMAGES = 8
+AP_TOL = 1e-6
+
+
+def _shares_line(rec, observed_pct) -> str:
+    """Each component's predicted ms and share of the predicted step,
+    beside the observe phase's share of captured device time."""
+    total = rec["predicted_step_time_ms"]
+    rows = []
+    for comp, ms in rec["predicted_components_ms"].items():
+        seen = (observed_pct or {}).get(comp)
+        rows.append(f"{comp} {ms:.3f} ms {100 * ms / total:.1f}%"
+                    + (f" (observed {seen}%)" if observed_pct is not None
+                       else ""))
+    return ", ".join(rows)
+
+
+def roofline_points(kernels, seed: int, observed=None, device="cuda"):
+    """Each ``ROOFLINE_POINTS`` point through ``tools/bench.py``'s rung in
+    this process (on this thread: the train phases' cuDNN autotune is
+    reused): measured and predicted step, MFU, FLOPs, the components'
+    predicted ms beside the observe phase's shares, the liveness peak
+    against ``max_memory_allocated`` and its largest tensors, and the
+    kernels' launches (3 / 2 / 8 per step, the counted step included)."""
+    import torch
+
+    from eksml_tpu_torch.tools import bench
+
+    out = {}
+    for label, rung, flags, capture in ROOFLINE_POINTS:
+        for k in kernels:
+            k.launches = 0
+        args = bench.parse_args(
+            ["--rungs", rung, "--steps", str(ROOFLINE_STEPS), "--seed",
+             str(seed), "--device", device, *flags, "--config",
+             *VARIANT_BASE])
+        rec = bench.run_rung(bench.select_rungs(rung)[0], args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        steps = 1 + (rec["warmup"] - 1) + rec["steps"]
+        launches = {k.name: k.launches for k in kernels}
+        want = {kernels.fwd.name: 3 * steps, kernels.bwd.name: 2 * steps,
+                kernels.copy.name: 2 * len(LEVEL_STRIDES) * steps}
+        assert launches == want, (label, launches, want)
+        rec["launches"] = launches
+        gap = (None if rec["measured_peak_bytes"] is None else
+               rec["measured_peak_bytes"] - rec["predicted_peak_hbm_bytes"])
+        before = rec["measured_allocated_before_step_bytes"]
+        log(f"[roofline] {label} ({rung}, {rec['precision']}, REMAT "
+            f"{rec['remat']}, batch {rec['batch_size']} at "
+            f"{rec['image_size']}): measured median step "
+            f"{rec['step_time_ms']:.2f} ms (min {rec['step_time_min_ms']:.2f},"
+            f" max {rec['step_time_max_ms']:.2f}; step 1 "
+            f"{rec['first_step_s']:.2f} s), predicted "
+            f"{rec['predicted_step_time_ms']:.2f} ms ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        rec["predicted_sections_ms"].items())
+            + f"); {rec['tflops_per_step']:.4f} TFLOP per step without "
+            f"REMAT's recompute ({rec['recompute_tflops']:.4f} recomputed), "
+            f"MFU {rec['mfu'] * 100:.2f}% of {rec['mfu_peak']['name']} "
+            f"{rec['mfu_peak']['flops_per_s']:.3g} FLOP/s; "
+            f"{rec['value']:.2f} images/s; launches {launches}")
+        observed_pct = (observed[capture]["component_pct"]
+                        if observed and capture else None)
+        log(f"[roofline] {label} by component: "
+            + _shares_line(rec, observed_pct))
+        log(f"[roofline] {label} memory: predicted liveness peak "
+            f"{rec['predicted_peak_hbm_bytes'] / 2 ** 30:.3f} GiB at "
+            f"{rec['predicted_peak_op']} ({rec['predicted_peak_component']};"
+            f" resident {rec['predicted_resident_bytes'] / 2 ** 30:.3f} "
+            "GiB), max_memory_allocated "
+            + (f"{rec['measured_peak_bytes'] / 2 ** 30:.3f} GiB (allocated "
+               f"before the step {before / 2 ** 30:.3f} GiB; measured - "
+               f"predicted {gap / 2 ** 30:+.3f} GiB)"
+               if gap is not None else "not measured")
+            + "; live at the peak by component (GiB): " + json.dumps(
+                {k: round(v / 2 ** 30, 3) for k, v in
+                 rec["predicted_live_at_peak_bytes"].items()})
+            + "; largest live tensors: " + json.dumps(
+                rec["predicted_top_tensors"]))
+        log("[roofline] ladder line: " + json.dumps(rec))
+        out[label] = rec
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def roofline_eval_ckpt(life, seed: int, workdir: str, device="cuda"):
+    """``python -m eksml_tpu_torch.tools.eval_ckpt`` in this process on the
+    lifecycle run's newest checkpoint over ``ROOFLINE_EVAL_IMAGES`` shapes
+    JPEGs, and the eval phase's evaluator (``run_evaluation``) on the same
+    weights and images: the AP dicts to ``AP_TOL``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from eksml_tpu_torch.data.coco import CocoDataset
+    from eksml_tpu_torch.evalcoco import run_evaluation
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.tools import eval_ckpt
+    from eksml_tpu_torch.train import cast_for_storage
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    base = os.path.join(workdir, "roofline_coco")
+    write_shapes_split(base, "val2017", ROOFLINE_EVAL_IMAGES, seed + 11)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_ckpt.main(["--logdir", life["run"], "--data", base,
+                             "--device", device, "--config",
+                             *VARIANT_BASE])
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"eval_ckpt exited {rc}"
+    got = json.loads(buf.getvalue().strip().splitlines()[-1])
+    cfg = variant_config()
+    model = MaskRCNN.from_config(cfg).to(device)
+    cast_for_storage(model, cfg.TRAIN.PARAM_DTYPE)
+    model.load_state_dict(CheckpointManager(life["run"]).restore(
+        got["step"])["model"])
+    model.eval()
+    records = CocoDataset(base, "val2017").records(skip_empty=False)
+    with torch.no_grad():
+        want = run_evaluation(model, cfg, records, device=device)
+    del model
+    diff = {k: abs(got[k] - v) for k, v in want.items()}
+    log(f"[roofline] eval_ckpt on the lifecycle run's step {got['step']} "
+        f"({got['num_images']} images, {wall:.1f} s in process): "
+        + json.dumps({k: got[k] for k in sorted(want)})
+        + f"; the eval phase's run_evaluation on the same weights: largest "
+        f"AP difference {max(diff.values()):.3g} (tolerance {AP_TOL})")
+    assert set(want) <= set(got) and max(diff.values()) <= AP_TOL, diff
+    return {"step": got["step"], "ap": {k: got[k] for k in sorted(want)},
+            "max_ap_diff": max(diff.values()), "wall_s": wall}
+
+
+def phase_roofline(kernels, seed: int, workdir: str, observed=None,
+                   life=None, device: str = "cuda"):
+    """The step's roofline on the card (``profiling/predict.py``) through
+    the ladder (``tools/bench.py``) at the f32 and bf16 + REMAT training
+    points and the ladder's ``1344_b8_remat`` rung, then ``eval_ckpt`` on
+    the lifecycle run's checkpoint (when the lifecycle phase ran)."""
+    out = {"points": roofline_points(kernels, seed, observed, device)}
+    if life is not None:
+        out["eval_ckpt"] = roofline_eval_ckpt(life, seed, workdir, device)
+    else:
+        log("[roofline] eval_ckpt did not run: it reads the lifecycle "
+            "phase's checkpoints (add lifecycle)")
+    return out
+
+
 RANKS_EVAL_SEED = 11
 
 
@@ -4352,6 +4436,7 @@ def main(argv=None) -> int:
     engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
     bf16 = serve16 = cascade = variants = observed = charts = None
+    roofline = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -4428,6 +4513,9 @@ def main(argv=None) -> int:
                 walls, "observe", phase_observe, KERNELS, args.seed,
                 workdir, train["batches"][:2] if train else
                 _synthetic_batches(train_config(), args.seed, BATCH, 2))
+        if "roofline" in phases:
+            roofline = timed(walls, "roofline", phase_roofline, KERNELS,
+                             args.seed, workdir, observed, life)
         if "charts" in phases:
             charts = timed(walls, "charts", phase_charts, KERNELS, args.seed,
                            workdir)
@@ -4480,6 +4568,10 @@ def main(argv=None) -> int:
                         else None),
                     "observe": (observed["launches"][k.name] if observed
                                 else None),
+                    "roofline": ({label: rec["launches"][k.name]
+                                  for label, rec in
+                                  roofline["points"].items()}
+                                 if roofline else None),
                     "charts": (charts["launches"][k.name] if charts
                                else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -4567,6 +4659,16 @@ def main(argv=None) -> int:
             "mask_target_call": observed["mask_target_call"],
             "profiler_windows_seen": observed["profiler_windows"],
             "overhead": observed["overhead"]}))
+    if roofline is not None:
+        keys = ("step_time_ms", "first_step_s", "predicted_step_time_ms",
+                "predicted_sections_ms", "tflops_per_step",
+                "recompute_tflops", "mfu", "value",
+                "predicted_peak_hbm_bytes", "measured_peak_bytes",
+                "measured_allocated_before_step_bytes")
+        log(f"[roofline] on {cards}: " + json.dumps(
+            {"points": {label: {k: rec[k] for k in keys}
+                        for label, rec in roofline["points"].items()},
+             "eval_ckpt": roofline.get("eval_ckpt")}))
     if charts is not None:
         log(f"[charts] on {cards}: " + json.dumps(
             {k: v for k, v in charts.items() if k != "launches"}))

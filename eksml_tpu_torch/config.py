@@ -226,12 +226,15 @@ RESILIENCE_DATA_DEFAULTS = dict(
 #   pod.  0 = legacy always-200.  Size it to cover the first-step XLA
 #   compile (minutes), not just steady-state steps — the charts'
 #   probe initialDelay rides the same value.
-# - PREDICTED_STEP_TIME: at the first step compile, AOT-lower the
-#   train step, price its HLO with the roofline model
-#   (eksml_tpu/profiling/predict.py) and publish the
-#   eksml_train_predicted_step_time_ms gauge — the measured-vs-
-#   predicted pair every scrape can alert on.  Costs one extra trace
-#   + an HLO text parse at fit start, never per step.
+# - PREDICTED_STEP_TIME: the first step of each fit runs under the
+#   step counter (eksml_tpu_torch/profiling/predict.py), which records
+#   every operation's FLOPs, bytes, component and allocations; the step
+#   is priced on the card's roofline and published as the
+#   eksml_train_predicted_step_time_ms gauge (with the predicted
+#   liveness peak in the log) — the measured-vs-predicted pair every
+#   scrape can alert on.  Costs one counted first step (host-side
+#   bookkeeping per operation), never a later one; the losses are the
+#   same bits as with the knob off.
 TELEMETRY_DEFAULTS = dict(
     ENABLED=True,
     PORT=9090,

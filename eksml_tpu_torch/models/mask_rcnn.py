@@ -56,7 +56,7 @@ from eksml_tpu_torch.ops.anchors import (generate_fpn_anchors,
 from eksml_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from eksml_tpu_torch.ops.nms import class_aware_nms
 from eksml_tpu_torch.ops.roi_align import dispatch_roi_align
-from eksml_tpu_torch.profiling.scopes import named_scope
+from eksml_tpu_torch.profiling.scopes import named_scope, recomputed
 
 #: TRAIN.PRECISION / TRAIN.PARAM_DTYPE → torch dtype
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -208,10 +208,12 @@ class MaskRCNN(nn.Module):
         x = x.to(self.compute_dtype)
         remat = self.remat and torch.is_grad_enabled()
         with named_scope("backbone"):
-            c_feats = (checkpoint(self.backbone, x, use_reentrant=False)
+            c_feats = (checkpoint(recomputed(self.backbone), x,
+                                  use_reentrant=False)
                        if remat else self.backbone(x))
         with named_scope("fpn"):
-            return (checkpoint(self.fpn, c_feats, use_reentrant=False)
+            return (checkpoint(recomputed(self.fpn), c_feats,
+                               use_reentrant=False)
                     if remat else self.fpn(c_feats))
 
     def _anchors(self, image_hw: Tuple[int, int], device

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 
 from eksml_tpu_torch.ops.cuda import build
+from eksml_tpu_torch.profiling.scopes import counted_call, uncounted
 
 MAX_LEVELS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -305,8 +306,8 @@ class RoiAlignFunction(torch.autograd.Function):
     def forward(ctx, kernels: RoiAlignKernels, rois: torch.Tensor,
                 strides: Sequence[int], out_size: int, sampling_ratio: int,
                 min_level: int, *feats: torch.Tensor) -> torch.Tensor:
-        out = kernels.fwd(feats, rois, strides, out_size, sampling_ratio,
-                          min_level)
+        out = counted_call("roi_align_fwd", kernels.fwd, feats, rois,
+                           strides, out_size, sampling_ratio, min_level)
         ctx.save_for_backward(rois)
         ctx.kernels = kernels
         ctx.args = (tuple(strides), out_size, sampling_ratio, min_level)
@@ -319,6 +320,10 @@ class RoiAlignFunction(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         (rois,) = ctx.saved_tensors
         k = ctx.kernels
-        accs = [k.copy(k.zero_seed(s, g.device)) for s in ctx.shapes]
-        k.bwd(accs, rois, g.contiguous(), *ctx.args)
+        with uncounted():
+            seeds = [k.zero_seed(s, g.device) for s in ctx.shapes]
+        accs = [counted_call("copy_to_global", k.copy, seed)
+                for seed in seeds]
+        counted_call("roi_align_bwd", k.bwd, accs, rois, g.contiguous(),
+                     *ctx.args)
         return (None,) * 6 + tuple(a.to(ctx.dtype) for a in accs)

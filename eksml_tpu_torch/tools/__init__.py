@@ -8,5 +8,9 @@
   ranks through the forced checkpoint) and, with ``--promote``, the
   canary promotion controller;
 - :mod:`render_charts` — the GPU charts rendered without helm, held to
-  their goldens in ``charts/golden-gpu/``.
+  their goldens in ``charts/golden-gpu/``;
+- :mod:`bench` — the training ladder: images/s per GPU by rung, the
+  first step apart, MFU and the roofline's prediction beside each;
+- :mod:`eval_ckpt` — a training checkpoint's COCO AP from the command
+  line.
 """

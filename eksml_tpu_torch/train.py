@@ -45,7 +45,10 @@ fit loop serves ``/metrics``, ``/healthz`` (503 past
 spans (``TRACING``), banks the goodput ledger (``GOODPUT``) and takes
 ``torch.profiler`` captures on request (``--profile N``,
 ``/debugz/profile``, the anomaly detector), each written with its
-attribution by model component under ``<logdir>/profile``.
+attribution by model component under ``<logdir>/profile``.  With
+``PREDICTED_STEP_TIME`` the first step runs under the step counter of
+``profiling/predict.py`` and its roofline on the card is published as
+``eksml_train_predicted_step_time_ms``.
 """
 
 from __future__ import annotations
@@ -431,6 +434,9 @@ class Trainer:
         self._goodput = None
         #: what the newest profiler capture wrote (``_finish_capture``)
         self.last_capture: Optional[Dict[str, Any]] = None
+        #: the newest first-step roofline (``_counted_step``)
+        self.last_prediction: Optional[Dict[str, Any]] = None
+        self._hbm_peak_logged = False
         self.recorder = None
         self.tracer = None
         if self._telemetry["ENABLED"]:
@@ -782,6 +788,9 @@ class Trainer:
                                       max_rollbacks=res.MAX_ROLLBACKS)
         nan_injected = False
         first_call = True
+        # the roofline of the first step (profiling/predict.py): counted
+        # once per fit, on the first batch shape
+        predict_first = bool(tele["ENABLED"] and tele["PREDICTED_STEP_TIME"])
         capture = None      # the in-flight profiler capture
         exporter = None
         goodput_bank_path = None
@@ -873,8 +882,12 @@ class Trainer:
                         self._goodput.begin_compile()
                 # host-side dispatch: the card runs behind it
                 with telemetry.span("train_step", step=step + 1):
-                    metrics = self._step(batch, self._priorities(batch, step),
-                                         step)
+                    priorities = self._priorities(batch, step)
+                    if first_call and predict_first:
+                        metrics = self._counted_step(batch, priorities,
+                                                     step, registry)
+                    else:
+                        metrics = self._step(batch, priorities, step)
                 if first_call:
                     if watchdog:
                         # from here the steady-state deadline applies
@@ -980,7 +993,8 @@ class Trainer:
                         row["goodput/ratio"] = snap["goodput_ratio"]
                         if goodput_bank_path:
                             self._goodput.bank(goodput_bank_path, steps=step)
-                    publish_hbm_gauges(self.device, registry)
+                    self._log_hbm_peak(publish_hbm_gauges(self.device,
+                                                          registry))
                     if self.writer:
                         self.writer.write_scalars(step, row)
                     log.info("step %d/%d loss=%.4f (%.2f img/s, %.1f ms)",
@@ -1074,6 +1088,76 @@ class Trainer:
                               "shutdown failed (keeping the original "
                               "exception)")
         return logged
+
+    def _counted_step(self, batch: Dict[str, torch.Tensor],
+                      priorities: Dict[str, torch.Tensor], step: int,
+                      registry) -> Dict[str, object]:
+        """The first step, run under the step counter, priced on the
+        card's roofline (``profiling/predict.py``): publishes
+        ``eksml_train_predicted_step_time_ms`` and logs the prediction,
+        kept in ``last_prediction``.  The step itself is the real one and
+        runs whatever the counting does: a failure to count or to price
+        logs a warning and never ends training."""
+        from eksml_tpu_torch.profiling import predict as predict_mod
+
+        try:
+            counter = predict_mod.train_counter(self.model, self.optimizer,
+                                                batch, priorities)
+        except Exception:  # noqa: BLE001 — observability only
+            log.warning("predicted-step-time gauge unavailable",
+                        exc_info=True)
+            return self._step(batch, priorities, step)
+        with counter:
+            metrics = self._step(batch, priorities, step)
+        try:
+            if counter.error is not None:
+                raise RuntimeError("the step counter failed") \
+                    from counter.error
+            counts = counter.counts(**predict_mod.train_meta(self.model,
+                                                             batch))
+            kind = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else None)
+            pred = predict_mod.predict_for_step(
+                counts, device_kind=kind,
+                mesh_shape=dict(zip(self.plan.mesh_axes,
+                                    self.plan.mesh_shape)),
+                precision=str(self.cfg.TRAIN.PRECISION),
+                num_slices=int(self.cfg.TPU.NUM_SLICES),
+                strategy=self.plan.strategy)
+            predict_mod.publish_predicted_gauge(pred, registry)
+            self.last_prediction = pred
+            self._hbm_peak_logged = False
+            sec, comms, hbm = (pred["sections_ms"], pred["comms_ms"],
+                               pred["hbm"])
+            log.info(
+                "predicted step time (%s roofline): %.2f ms (fwd %.2f / "
+                "bwd %.2f / comms %.2f / optimizer %.2f; comms ici %.2f / "
+                "dcn %.2f / exposed %.2f; peak HBM %.1f MB; %.3f TFLOP, "
+                "%.3f of them REMAT's recompute)", pred["target"],
+                pred["predicted_step_time_ms"], sec["fwd"], sec["bwd"],
+                sec["comms"], sec["optimizer"], comms["ici_ms"],
+                comms["dcn_ms"], comms["exposed_ms"],
+                hbm.get("peak_hbm_bytes", 0) / 1e6,
+                pred["totals"]["flops"] / 1e12,
+                pred["recompute_flops"] / 1e12)
+        except Exception:  # noqa: BLE001 — observability only
+            log.warning("predicted-step-time gauge unavailable",
+                        exc_info=True)
+        return metrics
+
+    def _log_hbm_peak(self, stats: Optional[Dict[str, int]]) -> None:
+        """Once per prediction, at the first log step with allocator
+        statistics: the predicted liveness peak against the measured
+        one (the reference's ``_publish_hbm``)."""
+        pred = self.last_prediction
+        measured = (stats or {}).get("peak_bytes")
+        if not measured or pred is None or self._hbm_peak_logged:
+            return
+        self._hbm_peak_logged = True
+        predicted = pred["hbm"].get("peak_hbm_bytes", 0)
+        log.info("hbm peak: predicted %.1f MB vs measured %.1f MB (x%.2f) "
+                 "— memory-model calibration point", predicted / 1e6,
+                 measured / 1e6, measured / max(predicted, 1))
 
     def _observe_anomaly(self, detector, trigger, step_time_ms: float,
                          agg: Optional[Dict[str, float]], step: int) -> None:

@@ -19,6 +19,7 @@ seeded inputs, on the CPU:
   dicts to 1e-6.
 """
 
+import json
 import os
 import sys
 
@@ -322,10 +323,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.fixture(scope="module")
-def real_eval(tmp_path_factory):
-    """Both runners with the real model on ``mini_coco``'s val images
-    from the same weights (the port's seeded init as a Flax tree, and
-    ``from_flax`` of that tree), each predict output kept."""
+def real_weights(tmp_path_factory):
+    """``mini_coco`` and one set of weights in both packages: the port's
+    seeded init as a Flax tree, and ``from_flax`` of that tree."""
     base = conftest.mini_coco.__wrapped__(tmp_path_factory.mktemp("coco"))
     tcfg, jcfg = _cfg(t_config), _cfg(j_config)
     tree = {}
@@ -338,6 +338,14 @@ def real_eval(tmp_path_factory):
         node[leaf] = jnp.asarray(np.ascontiguousarray(t.numpy()))
     model = MaskRCNN.from_config(tcfg)
     model.load_state_dict(from_flax(tree))
+    return base, tcfg, jcfg, tree, model
+
+
+@pytest.fixture(scope="module")
+def real_eval(real_weights):
+    """Both runners with the real model on ``mini_coco``'s val images
+    from the same weights, each predict output kept."""
+    base, tcfg, jcfg, tree, model = real_weights
     flax_model = FlaxMaskRCNN.from_config(jcfg)
     jax_predict = j_runner.make_predict_fn(flax_model)
     outs = {"eksml_tpu": [], "eksml_tpu_torch": []}
@@ -383,6 +391,35 @@ def test_run_evaluation_with_the_model_matches_jax_ap(real_eval):
     assert set(got) == set(want) and {"bbox/AP", "segm/AP"} <= set(got)
     for k in got:
         assert abs(got[k] - want[k]) <= 1e-6, k
+
+
+def test_eval_ckpt_ap_equals_the_reference_ap(real_weights, real_eval,
+                                              tmp_path, capsys):
+    """``python -m eksml_tpu_torch.tools.eval_ckpt`` on a port checkpoint
+    of the ``from_flax`` weights: its AP equals the reference's
+    ``run_evaluation`` on the same weights to 1e-6, from the newest
+    verified step and from ``--step``; a missing step exits 1."""
+    from eksml_tpu_torch.tools import eval_ckpt
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
+    base, _, _, _, model = real_weights
+    want = real_eval[0]["eksml_tpu"]
+    ckpt = CheckpointManager(str(tmp_path))
+    for step in (3, 5):
+        ckpt.save(step, {"model": model.state_dict(), "step": step})
+        ckpt.wait()
+    ckpt.close()
+    argv = ["--logdir", str(tmp_path), "--data", str(base), "--device",
+            "cpu", "--config", *SMOKE_OVERRIDES, *EVAL_OVERRIDES,
+            "TEST.EVAL_BATCH_SIZE=2"]
+    for extra, step in (([], 5), (["--step", "3"], 3)):
+        assert eval_ckpt.main(argv[:6] + extra + argv[6:]) == 0
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert got["step"] == step and got["num_images"] == 2
+        assert {"bbox/AP", "segm/AP"} <= set(got)
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-6, k
+    assert eval_ckpt.main(argv[:6] + ["--step", "4"] + argv[6:]) == 1
 
 
 # ---------------------------------------------------------------------

@@ -796,3 +796,95 @@ def test_profiled_step_attributes_the_kernels_by_component(cuda, tmp_path):
         hits = {k: v for k, v in attr["map"].items() if prefix in k}
         assert hits, prefix
         assert all(set(v) == {comp} for v in hits.values()), hits
+
+
+# ---------------------------------------------------------------------
+# the step's roofline (profiling/predict.py)
+# ---------------------------------------------------------------------
+
+
+def _counted_smoke_step(where, params, batch, pri, cfg, shared):
+    """One SMOKE training step on ``where`` under the step counter, the
+    RPN proposals of the first such run given to the second (both still
+    compute theirs, so the NMS is counted on both)."""
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.profiling import predict
+    from eksml_tpu_torch.train import make_optimizer, make_train_step
+
+    model = MaskRCNN.from_config(cfg)
+    model.load_state_dict(params)
+    model.to(where).train()
+    proposals = model._proposals
+
+    def share(*args, **kwargs):
+        out = proposals(*args, **kwargs)
+        if shared:
+            return tuple(t.to(where) for t in shared)
+        shared.extend(t.detach().cpu() for t in out)
+        return out
+
+    model._proposals = share
+    opt, sched = make_optimizer(model, cfg)
+    step = make_train_step(model, opt, sched, float(cfg.TRAIN.GRADIENT_CLIP))
+    b = {k: v.to(where) for k, v in batch.items()}
+    p = {k: v.to(where) for k, v in pri.items()}
+    _, counts = predict.count_train_step(step, b, p, 0, model, opt)
+    assert "error" not in counts.meta, counts.meta
+    return counts
+
+
+def _by_component(counts, by_op=False):
+    """{component (and op name): [FLOPs, bytes]} without the card's
+    copies from the host."""
+    from eksml_tpu_torch.profiling import predict
+
+    out = {}
+    for o in counts.ops:
+        if o.kind == predict.TRANSFER:
+            continue
+        row = out.setdefault((o.component, o.name) if by_op
+                             else o.component, [0, 0])
+        row[0] += o.flops
+        row[1] += o.bytes
+    return out
+
+
+def test_counted_step_on_the_card_equals_the_cpu(cuda):
+    """The step counter on one SMOKE training step (128², batch 2,
+    float32) from the same weights, batch, priorities and RPN proposals:
+    FLOPs and bytes by component equal on the card and on the CPU (the
+    ROIAlign calls by their closed form on both; the card's copies from
+    the host left out), and so does the prediction."""
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.data.loader import make_synthetic_batch
+    from eksml_tpu_torch.profiling import predict
+
+    cfg = config.clone()
+    cfg.freeze(False)
+    cfg.update_args(list(SMOKE_OVERRIDES) + ["TRAIN.BATCH_SIZE_PER_CHIP=2"])
+    cfg.freeze()
+    batch = make_synthetic_batch(cfg, batch_size=2, image_size=128,
+                                 seed=7, gt_mask_size=28)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()
+             if k not in ("image_scale", "image_id")}
+    params = init_params(cfg, torch.Generator().manual_seed(7))
+    from eksml_tpu_torch.models import MaskRCNN
+
+    pri = MaskRCNN.from_config(cfg).make_priorities(
+        (2, 128, 128, cfg.DATA.MAX_GT_BOXES),
+        torch.Generator().manual_seed(7))
+    shared = []
+    cpu = _counted_smoke_step("cpu", params, batch, pri, cfg, shared)
+    card = _counted_smoke_step(cuda, params, batch, pri, cfg, shared)
+    got, want = _by_component(card), _by_component(cpu)
+    ops_got, ops_want = (_by_component(card, True),
+                         _by_component(cpu, True))
+    assert got == want, {k: (ops_got.get(k), ops_want.get(k))
+                         for k in set(ops_got) | set(ops_want)
+                         if ops_got.get(k) != ops_want.get(k)}
+    assert [(o.name, o.flops, o.bytes) for o in card.kernel_calls()] == \
+        [(o.name, o.flops, o.bytes) for o in cpu.kernel_calls()]
+    a = predict.predict_for_step(card, torch.cuda.get_device_name(0))
+    b = predict.predict_for_step(cpu)
+    assert a["totals"]["flops"] == b["totals"]["flops"]
