@@ -139,6 +139,22 @@ roofline — the training step's H100 roofline (``profiling/predict.py``)
              lifecycle run's newest checkpoint over 8 shapes JPEGs, its
              AP equal to ``run_evaluation``'s on the same weights.
 
+autotune — cuDNN's algorithm choice, paid at every process start
+             (``utils/compile_cache.py``): the full autotune and autotune
+             with ``benchmark_limit=2``, and at bf16 cuDNN's heuristics,
+             each at the f32 and the bf16 + REMAT steps (1344², batch 4,
+             the ladder's rung code), the f32 chart's step (batch 1) and
+             the optimized overlay's (bf16, batch 4, 832x1344), and the
+             serving engine (warmup, batch-4 forward) at f32 and bf16,
+             each in a fresh
+             process (all set up together, then timed one at a time) but
+             where an earlier phase already measured the setting this
+             process runs: step 1 (serving: the warmup), the median step
+             with its interquartile range, the peaks and the launches;
+             the rule's verdict per point and the policy it gives
+             (PERF.md section 6), with ``compile_cache.POLICY`` held to
+             those verdicts.
+
 charts  — the GPU charts (``charts/{maskrcnn,serve,autoscaler}-gpu``)
              rendered by ``eksml_tpu_torch.tools.render_charts`` for a
              one-card install, their container commands run as the pods
@@ -146,13 +162,17 @@ charts  — the GPU charts (``charts/{maskrcnn,serve,autoscaler}-gpu``)
              each change printed): the default f32 chart through
              ``eksml_tpu_torch.launch`` for 40 steps at 1344² on shapes
              JPEGs and a stand-in R50 npz (every array loaded), its
-             checkpoint and end-of-run eval; the optimized overlay
+             checkpoint and end-of-run eval, its TensorBoard event files
+             (the port's reader) against its ``metrics.jsonl``, and the
+             Jupyter pod's two viz notebooks run as scripts against it
+             (detections, 2 forward launches each); the optimized overlay
              SIGTERMed after step 3 (the launcher exits 77 after the
              forced checkpoint) and relaunched (resumes at the next
              step, runs to the end); the serve chart's stable command on
              that run (``/healthz`` 200, 4 requests, drain rc 0); the
              autoscaler's argv through the operator's parser.  Each
-             process's kernel launches, from the line it logs at exit.
+             process's kernel launches, from the line it logs at exit;
+             the restarts' times beside earlier runs' (PERF.md).
 
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.
@@ -189,7 +209,7 @@ PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "fleet", "operator", "dist", "ranks",
           "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
-          "variants_reference", "observe", "roofline", "charts")
+          "variants_reference", "observe", "roofline", "autotune", "charts")
 
 # predict shapes at the 1344² canvas: P2..P5 and the two ROIAlign calls
 CANVAS = 1344
@@ -3964,6 +3984,514 @@ def eval_rank(run: str) -> int:
 
 
 # ---------------------------------------------------------------------
+# phase autotune: cuDNN's algorithm choice, paid at every process start
+# ---------------------------------------------------------------------
+
+#: the training points through the ladder's rung code
+#: (``tools/bench.run_rung``): (label, mode, precision, rung, flags).
+#: The charts' points take the step-shaping ``--config`` items of the
+#: chart's one-card render (``AUTOTUNE_CHART_KEYS``): the f32 chart at
+#: batch 1 on the square 1344² canvas it pads to, the optimized overlay
+#: (bf16, REMAT, batch 4) at the landscape bucket its images take
+AUTOTUNE_LADDER = (
+    ("train_f32_b4", "train", "float32", "1344_b4",
+     ("--precision", "float32")),
+    ("train_bf16_remat_b4", "train", "bfloat16", "1344_b4",
+     ("--precision", "bfloat16", "--remat", "1")),
+    ("chart_f32_b1", "train", "float32",
+     {"name": "chart_1344_b1", "image_size": 1344, "pad_hw": None,
+      "batch_size": 1}, ("--precision", "float32")),
+    ("chart_optimized_b4", "train", "bfloat16",
+     {"name": "chart_832x1344_b4", "image_size": 1344,
+      "pad_hw": (832, 1344), "batch_size": 4},
+     ("--precision", "bfloat16")),
+)
+#: the chart render's ``--config`` keys that shape the training step
+AUTOTUNE_CHART_KEYS = ("MODE_MASK", "MODE_FPN", "TRAIN.BATCH_SIZE_PER_CHIP",
+                       "TRAIN.PRECISION", "TRAIN.REMAT",
+                       "TRAIN.GRADIENT_CLIP", "BACKBONE.NORM")
+#: the serving points: the serve phase's config at each precision
+AUTOTUNE_SERVE = (("serve_f32", "float32"), ("serve_bf16", "bfloat16"))
+#: timed steps of a ladder point, timed batch-4 forwards of a serving one
+AUTOTUNE_STEPS = 10
+SERVE_BATCH4_CALLS = 10
+AUTOTUNE_BUDGET = 600.0
+AUTOTUNE_LINE = "AUTOTUNE_RESULT "
+AUTOTUNE_READY = "AUTOTUNE_READY"
+#: settings measured beside ``compile_cache.SETTINGS`` that no row of its
+#: policy takes: the first two algorithms of cuDNN's list only, and
+#: cuDNN's heuristics (no timing, the first algorithm that runs)
+AUTOTUNE_EXTRA_SETTINGS = {
+    "autotune_limit_2": {"benchmark": True, "benchmark_limit": 2},
+    "heuristics": {"benchmark": False, "benchmark_limit": 10}}
+#: (precision, setting) left out at every point of that precision: each
+#: measured run failed it at each such point (f32 under cuDNN's
+#: heuristics: 25-31 % slower steps in seven runs, PERF.md section 6)
+AUTOTUNE_SETTLED = (("float32", "heuristics"),)
+#: the points whose verdict every measured run gave alike (PERF.md
+#: section 6): there the rule must choose the policy's setting, where
+#: the point's full autotune ran in a fresh process (a reading late in
+#: this process runs a few percent slow, which is the margin the other
+#: settings are judged by)
+AUTOTUNE_HELD = ("train_f32_b4",)
+#: the rule (PERF.md section 5): another setting's median step (serving:
+#: batch-4 latency) passes when it is at most the full autotune's plus
+#: the larger of this share of it and the full autotune's own spread
+AUTOTUNE_NOISE_SHARE = 0.01
+
+
+def _spread(times) -> float:
+    """The interquartile range of timed steps (ms)."""
+    q1, q3 = np.percentile(np.asarray(times, np.float64), [25, 75])
+    return float(q3 - q1)
+
+
+def serve_batch4_ms(engine, seed: int, calls: int = SERVE_BATCH4_CALLS):
+    """``calls`` batch-4 forwards of the engine (four seeded images of the
+    serve phase's sizes, preprocessed into their bucket), each timed to
+    its numpy outputs, in ms."""
+    rng = np.random.RandomState(seed + 7)
+    pre = [engine.preprocess(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+           for h, w in ((480, 640), (640, 480), (800, 1333), (600, 600))]
+    buckets = {p[3] for p in pre}
+    assert len(buckets) == 1, f"the four images take buckets {buckets}"
+    images = np.stack([p[0] for p in pre])
+    hw = np.asarray([p[2] for p in pre], np.float32)
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        engine.infer(images, hw, pre[0][3])
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def autotune_chart_items(values_files=()) -> list:
+    """The step-shaping ``--config`` items of the training chart's
+    one-card render (with ``values_files``)."""
+    c, _, _ = chart_container("charts/maskrcnn-gpu", values_files,
+                              CHARTS_ONE_CARD)
+    items = list(c["command"][c["command"].index("--config") + 1:])
+    return [a for a in items if a.split("=", 1)[0] in AUTOTUNE_CHART_KEYS]
+
+
+def autotune_specs(seed: int):
+    """One spec per point: what a fresh process runs."""
+    specs = []
+    for label, mode, precision, rung, flags in AUTOTUNE_LADDER:
+        argv = ["--steps", str(AUTOTUNE_STEPS), "--seed", str(seed),
+                *flags, "--config", *VARIANT_BASE]
+        if label.startswith("chart_"):
+            files = (("values-optimized.yaml",) if "optimized" in label
+                     else ())
+            argv += autotune_chart_items(files)
+        else:
+            rung = next(r for r in _bench_rungs() if r["name"] == rung)
+        specs.append({"label": label, "mode": mode, "precision": precision,
+                      "kind": "ladder", "rung": rung, "argv": argv,
+                      "seed": seed})
+    for label, precision in AUTOTUNE_SERVE:
+        specs.append({"label": label, "mode": "serve",
+                      "precision": precision, "kind": "serve",
+                      "config": ["SERVE.MAX_BATCH_DELAY_MS=250",
+                                 f"TRAIN.PRECISION={precision}"],
+                      "seed": seed})
+    return specs
+
+
+def _bench_rungs():
+    from eksml_tpu_torch.tools import bench
+
+    return bench.RUNGS
+
+
+def autotune_settings(spec) -> tuple:
+    """The settings the autotune phase measures at the point ``spec``."""
+    from eksml_tpu_torch.utils.compile_cache import SETTINGS
+
+    return tuple(s for s in (*SETTINGS, *AUTOTUNE_EXTRA_SETTINGS)
+                 if (spec["precision"], s) not in AUTOTUNE_SETTLED)
+
+
+def autotune_child(spec_json: str) -> int:
+    """One point under one setting in this fresh process (``python3
+    chip_smoke.py --autotune-child SPEC``): every row of the policy table
+    takes the setting under test, and the point runs through the port's
+    own code.  Its set-up (cuDNN's and cuBLAS's libraries, the model and
+    the batch on the card) comes first; then the process prints
+    ``AUTOTUNE_READY`` and waits for the parent's release (one point on
+    the card at a time) before its step 1 (serving: the warmup).  One
+    ``AUTOTUNE_RESULT`` JSON line reports step 1, the timed steps, the
+    peaks and the ROIAlign launches."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.ops.roi_align import KERNELS
+    from eksml_tpu_torch.serve import InferenceEngine
+    from eksml_tpu_torch.tools import bench
+    from eksml_tpu_torch.utils import compile_cache
+
+    spec = json.loads(spec_json)
+    compile_cache.SETTINGS.update(AUTOTUNE_EXTRA_SETTINGS)
+    compile_cache.POLICY = {k: spec["setting"]
+                            for k in compile_cache.POLICY}
+    held = {}
+    # the children set up together on the machine's cores: one host
+    # thread each until the release
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def hold():
+        """Set up: load the libraries, then wait for the release."""
+        torch.set_num_threads(threads)
+        held["libraries_s"] = prime_libraries()
+        held["free_bytes"] = int(torch.cuda.mem_get_info()[0])
+        held["ready_s"] = time.time() - spec["launched_at"]
+        print(AUTOTUNE_READY, flush=True)
+        sys.stdin.readline()
+        held["go"] = time.time()
+        for k in KERNELS:
+            k.launches = 0
+
+    if spec["kind"] == "ladder":
+        rec = bench.run_rung(spec["rung"], bench.parse_args(spec["argv"]),
+                             count=False, ready=hold)
+        steps = 1 + (rec["warmup"] - 1) + rec["steps"]
+        out = {"start_s": rec["first_step_s"],
+               "times_ms": rec["step_times_ms"],
+               "peak_bytes": rec["measured_peak_bytes"],
+               "process_peak_bytes": int(torch.cuda.max_memory_allocated()),
+               "cudnn": rec["cudnn"], "steps": steps,
+               "batch": rec["batch_size"], "canvas": rec["image_size"],
+               "precision": rec["precision"], "remat": rec["remat"]}
+    else:
+        cfg = variant_config(*spec["config"], training=False)
+        params = init_params(cfg, torch.Generator().manual_seed(
+            spec["seed"]))
+        engine = InferenceEngine(cfg, params=params)
+        hold()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warmed = engine.warmup()
+        torch.cuda.synchronize()
+        start = time.perf_counter() - t0
+        warm_peak = int(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        times = serve_batch4_ms(engine, spec["seed"])
+        out = {"start_s": start, "times_ms": times,
+               "peak_bytes": int(torch.cuda.max_memory_allocated()),
+               "process_peak_bytes": warm_peak,
+               "cudnn": engine.cudnn["setting"], "warm_shapes": warmed,
+               "batches": len(times)}
+        engine.close()
+    out["launches"] = {k.name: k.launches for k in KERNELS}
+    out.update({k: held[k] for k in ("libraries_s", "free_bytes",
+                                     "ready_s")})
+    out["released_s"] = time.time() - held["go"]
+    print(AUTOTUNE_LINE + json.dumps(out), flush=True)
+    return 0
+
+
+def prime_libraries() -> float:
+    """A small convolution forward and backward and a matrix product in
+    float32 and bfloat16 on the card, in a point's set-up: cuDNN's and
+    cuBLAS's libraries load here, once per process, as they had in the
+    process whose earlier phases the reused point comes from.  Returns
+    its seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 8, 16, 16, device="cuda", dtype=dtype,
+                        requires_grad=True)
+        w = torch.randn(8, 8, 3, 3, device="cuda", dtype=dtype,
+                        requires_grad=True)
+        y = torch.nn.functional.conv2d(x, w, padding=1).flatten(1)
+        (y @ y.T).sum().backward()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+class AutotuneChildren:
+    """The autotune phase's fresh processes (``python3 chip_smoke.py
+    --autotune-child SPEC``), all started at once: each imports the port
+    and sets its point up, all together (:meth:`wait_ready`); then
+    :meth:`result` releases them one at a time, so no two points run on
+    the card together, and the next is released once the previous
+    printed its result (its exit overlaps the next one's step 1)."""
+
+    def __init__(self, jobs, workdir: str):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for spec, setting in jobs:
+            log_path = os.path.join(workdir, f"autotune-{spec['label']}-"
+                                             f"{setting}.log")
+            arg = json.dumps(dict(spec, setting=setting,
+                                  launched_at=time.time()))
+            with open(log_path, "w") as f:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.join(here, "chip_smoke.py"),
+                     "--autotune-child", arg], stdin=subprocess.PIPE,
+                    stdout=f, stderr=subprocess.STDOUT, cwd=here,
+                    env=dict(os.environ, PYTHONPATH=here), text=True,
+                    start_new_session=True)
+            self.procs[(spec["label"], setting)] = (proc, log_path)
+
+    def wait_ready(self) -> float:
+        """Wait until every child has set up and waits for its release;
+        returns the seconds since the first start."""
+        deadline = time.monotonic() + AUTOTUNE_BUDGET
+        waiting = dict(self.procs)
+        while waiting:
+            for key, (proc, log_path) in list(waiting.items()):
+                with open(log_path) as f:
+                    text = f.read()
+                if AUTOTUNE_READY in text.splitlines():
+                    del waiting[key]
+                elif proc.poll() is not None:
+                    log(f"[autotune] {key[0]} {key[1]}: exited "
+                        f"{proc.returncode} in its set-up:\n{text[-4000:]}")
+                    raise AssertionError(f"autotune child {key} failed")
+            assert time.monotonic() < deadline, (
+                f"autotune children {sorted(waiting)} not set up in "
+                f"{AUTOTUNE_BUDGET} s")
+            if waiting:
+                time.sleep(0.2)
+        return time.perf_counter() - self.t0
+
+    def result(self, spec, setting: str) -> dict:
+        """Release one child and return its result once it printed it:
+        the released process's seconds to its result (``released_s``),
+        its set-up before the release (``ready_s``, off the phase's
+        critical path)."""
+        proc, log_path = self.procs[(spec["label"], setting)]
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+        deadline = time.monotonic() + AUTOTUNE_BUDGET
+        lines = []
+        while not lines and proc.poll() is None:
+            assert time.monotonic() < deadline, (
+                f"autotune child {spec['label']} {setting}: no result in "
+                f"{AUTOTUNE_BUDGET} s")
+            time.sleep(0.05)
+            with open(log_path) as f:
+                lines = [line for line in f.read().splitlines()
+                         if line.startswith(AUTOTUNE_LINE)]
+        with open(log_path) as f:
+            text = f.read()
+        lines = [line for line in text.splitlines()
+                 if line.startswith(AUTOTUNE_LINE)]
+        if len(lines) != 1 or proc.returncode not in (None, 0):
+            log(f"[autotune] {spec['label']} {setting}: exited "
+                f"{proc.returncode}:\n{text[-4000:]}")
+            raise AssertionError(f"autotune child {spec['label']} "
+                                 f"{setting} failed")
+        rec = json.loads(lines[0][len(AUTOTUNE_LINE):])
+        assert rec["cudnn"] == setting, (rec["cudnn"], setting)
+        return rec
+
+    def close(self) -> None:
+        """Wait for every child's exit (code 0); kill what is left."""
+        bad = []
+        for key, (proc, _) in self.procs.items():
+            try:
+                if proc.stdin and not proc.stdin.closed:
+                    proc.stdin.close()      # never released: exits on EOF
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                rc = proc.wait()
+            if rc != 0:
+                bad.append((key, rc))
+        assert not bad, f"autotune children exited {bad}"
+
+
+def _check_autotune_launches(kernels, spec, rec) -> None:
+    if spec["kind"] == "ladder":
+        n = rec["steps"]
+        want = {kernels.fwd.name: 3 * n, kernels.bwd.name: 2 * n,
+                kernels.copy.name: 2 * len(LEVEL_STRIDES) * n}
+    else:
+        want = {kernels.fwd.name: 2 * (rec["warm_shapes"] + rec["batches"]),
+                kernels.bwd.name: 0, kernels.copy.name: 0}
+    assert rec["launches"] == want, (spec["label"], rec["launches"], want)
+
+
+def autotune_verdict(recs: dict):
+    """The rule at one point: ``{setting: record}`` -> (the settings that
+    pass, the one chosen, the noise bound in ms).  A setting passes when
+    its median step is at most the full autotune's plus the larger of
+    ``AUTOTUNE_NOISE_SHARE`` of it and the full autotune's own spread;
+    among those that pass, the least start (step 1 or warmup) wins."""
+    full = recs["autotune"]
+    bound = max(AUTOTUNE_NOISE_SHARE * full["median_ms"], full["spread_ms"])
+    passing = sorted(s for s, r in recs.items()
+                     if r["median_ms"] <= full["median_ms"] + bound)
+    return passing, min(passing, key=lambda s: recs[s]["start_s"]), bound
+
+
+def autotune_policy(points: dict) -> dict:
+    """The policy the rule gives each (mode, precision): a setting that
+    passes at every point of the key, the least summed start among
+    them."""
+    keys = {}
+    for p in points.values():
+        keys.setdefault((p["mode"], p["precision"]), []).append(p)
+    out = {}
+    for key, ps in sorted(keys.items()):
+        ok = [s for s in ps[0]["settings"]
+              if all(s in p["passing"] for p in ps)]
+        out[key] = min(ok, key=lambda s: sum(p["settings"][s]["start_s"]
+                                             for p in ps))
+    return out
+
+
+def check_autotune_policy(points: dict) -> None:
+    """``compile_cache.POLICY`` held to this run's verdicts: its setting
+    passes the rule at every point of its row (it never trades steady
+    time beyond the noise), and at ``AUTOTUNE_HELD`` the rule chooses it
+    where the full autotune there was measured in a fresh process."""
+    from eksml_tpu_torch.utils.compile_cache import POLICY
+
+    for label, p in points.items():
+        applied = POLICY[(p["mode"], p["precision"])]
+        assert applied in p["passing"], (label, applied, p["passing"])
+        if label not in AUTOTUNE_HELD:
+            continue
+        if p["settings"]["autotune"]["fresh"]:
+            assert p["chosen"] == applied, (label, p["chosen"], applied)
+        else:
+            log(f"[autotune] {label}: the verdict is not held, its full "
+                "autotune was read in this process")
+
+
+def _autotune_points(kernels, specs, reuse, children) -> dict:
+    """Each point's settings (reused or released from ``children``), the
+    rule's verdict, printed."""
+    from eksml_tpu_torch.utils.compile_cache import POLICY
+
+    points = {}
+    for spec in specs:
+        label = spec["label"]
+        applied = POLICY[(spec["mode"], spec["precision"])]
+        recs = {}
+        for setting in autotune_settings(spec):
+            if setting == applied and label in reuse:
+                rec = dict(reuse[label], cudnn=setting, fresh=False)
+            else:
+                rec = children.result(spec, setting)
+                _check_autotune_launches(kernels, spec, rec)
+                rec.update(source="a fresh process", fresh=True)
+            rec["median_ms"] = float(np.median(rec["times_ms"]))
+            rec["spread_ms"] = _spread(rec["times_ms"])
+            recs[setting] = rec
+            log(f"[autotune] {label} {setting} ({rec['source']}): "
+                f"{'warmup' if spec['kind'] == 'serve' else 'step 1'} "
+                f"{rec['start_s']:.2f} s; "
+                f"{'batch-4 forward' if spec['kind'] == 'serve' else 'step'}"
+                f" median {rec['median_ms']:.2f} ms (IQR "
+                f"{rec['spread_ms']:.2f}, min {min(rec['times_ms']):.2f}, "
+                f"max {max(rec['times_ms']):.2f}, {len(rec['times_ms'])} "
+                f"timed); peak {_gib(rec['peak_bytes'])} GiB"
+                + (f" (process {_gib(rec['process_peak_bytes'])} GiB)"
+                   if rec.get("process_peak_bytes") else "")
+                + (f"; released to result {rec['released_s']:.1f} s "
+                   f"(set up before the release in {rec['ready_s']:.1f} s,"
+                   f" the libraries' load {rec['libraries_s']:.2f} s of it;"
+                   f" free on the card at the release "
+                   f"{_gib(rec['free_bytes'])} GiB)"
+                   if "released_s" in rec else "")
+                + f"; launches {rec.get('launches')}")
+        passing, chosen, bound = autotune_verdict(recs)
+        log(f"[autotune] {label}: the noise bound {bound:.2f} ms over the "
+            f"full autotune's {recs['autotune']['median_ms']:.2f} ms; pass "
+            f"{passing}; the rule takes {chosen}")
+        points[label] = {"mode": spec["mode"],
+                         "precision": spec["precision"],
+                         "passing": passing, "chosen": chosen,
+                         "bound_ms": bound, "_recs": recs,
+                         "settings": {s: {k: r.get(k) for k in (
+                             "start_s", "median_ms", "spread_ms",
+                             "peak_bytes", "process_peak_bytes",
+                             "released_s", "ready_s", "libraries_s",
+                             "free_bytes", "source", "fresh")}
+                             for s, r in recs.items()}}
+    return points
+
+
+def phase_autotune(kernels, seed: int, workdir: str, reuse=None):
+    """cuDNN's algorithm choice at each point (``AUTOTUNE_LADDER``,
+    ``AUTOTUNE_SERVE``) under each setting (``autotune_settings``), each
+    in a fresh process (``AutotuneChildren``: set up together, each
+    loading cuDNN's and cuBLAS's libraries (``prime_libraries``) and
+    putting its model and batch on the card, then released one at a
+    time), except where an earlier phase of this process already
+    measured the setting this process's policy applies on a fresh thread
+    (``reuse``: the train phase's step 1 with the roofline phase's f32
+    steps).  Prints step 1 (serving: the warmup), the median step with
+    its spread, the peaks and the launches of each, the rule's verdict
+    per point and the policy it gives, and holds
+    ``compile_cache.POLICY`` to the verdicts
+    (``check_autotune_policy``)."""
+    import torch
+
+    from eksml_tpu_torch.utils.compile_cache import POLICY
+
+    reuse = reuse or {}
+    specs = autotune_specs(seed)
+    jobs = [(spec, setting) for spec in specs
+            for setting in autotune_settings(spec)
+            if not (spec["label"] in reuse and setting == POLICY[
+                (spec["mode"], spec["precision"])])]
+    # the children's set-up shares the card with this process
+    torch.cuda.empty_cache()
+    children = AutotuneChildren(jobs, workdir)
+    try:
+        ready_s = children.wait_ready()
+        log(f"[autotune] {len(jobs)} fresh processes set up together "
+            f"(imports, the libraries' load, the model and batch on the "
+            f"card) in {ready_s:.1f} s")
+        points = _autotune_points(kernels, specs, reuse, children)
+    finally:
+        children.close()
+    recs = [r for p in points.values() for r in p.pop("_recs").values()
+            if r.get("launches")]
+    launches = {k.name: sum(r["launches"][k.name] for r in recs)
+                for k in kernels}
+    policy = autotune_policy(points)
+    log("[autotune] the policy the rule gives: " + json.dumps(
+        {f"{m} {p}": s for (m, p), s in sorted(policy.items())})
+        + "; compile_cache.POLICY: " + json.dumps(
+        {f"{m} {p}": s for (m, p), s in sorted(POLICY.items())}))
+    check_autotune_policy(points)
+    return {"points": points, "launches": launches, "ready_s": ready_s,
+            "policy": {f"{m} {p}": s for (m, p), s in sorted(policy.items())},
+            "applied": {f"{m} {p}": s for (m, p), s in sorted(POLICY.items())}}
+
+
+def _gib(n) -> str:
+    return "n/a" if n is None else f"{n / 2 ** 30:.2f}"
+
+
+def autotune_reuse(train, roofline) -> dict:
+    """The f32 point at 1344², batch 4, as earlier phases of this process
+    measured it under its policy: step 1 of the train phase (on a fresh
+    thread) with the timed steps of the roofline phase's f32 rung.  Only
+    this point: a step 1 late in this process read 1.3-2x that of a fresh
+    process at bf16 (20.15 s against 9.87 s under the same shapes), which
+    decides nothing only where the full autotune takes ~115 s."""
+    points = (roofline or {}).get("points", {})
+    if not train or "f32" not in points:
+        return {}
+    r = points["f32"]
+    return {"train_f32_b4": {
+        "start_s": train["rows"][0]["step_time_ms"] / 1e3,
+        "times_ms": r["step_times_ms"], "peak_bytes": r["measured_peak_bytes"],
+        "source": "step 1 of this process's train phase, steps of the "
+                  "roofline phase's f32 rung"}}
+
+
+# ---------------------------------------------------------------------
 # phase charts: the GPU charts' rendered commands, run as the pods would
 # ---------------------------------------------------------------------
 
@@ -4266,6 +4794,101 @@ def _check_serve_launches(kernels, served) -> None:
     assert served["launches"] == want, (served, want)
 
 
+#: the port's viz notebooks, run by the charts phase's notebook leg
+NOTEBOOKS = ("mask-rcnn-eksml-gpu-viz.ipynb",
+             "mask-rcnn-eksml-gpu-optimized-viz.ipynb")
+NOTEBOOK_CHILD = """
+import json, sys
+from eksml_tpu_torch.tools.run_notebook import run
+from eksml_tpu_torch.ops.roi_align import KERNELS
+run(sys.argv[1])
+print("JAX MODULES", sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "eksml_tpu")))
+print(sys.argv[2] + json.dumps({k.name: k.launches for k in KERNELS}))
+"""
+
+
+def check_event_files(logdir: str) -> dict:
+    """The run's TensorBoard event files read with the port's reader
+    (each record's CRCs checked): every scalar of every ``metrics.jsonl``
+    row at its step, equal as float32."""
+    from eksml_tpu_torch.utils import tfevents
+
+    files = sorted(f for f in os.listdir(logdir) if "tfevents" in f)
+    assert files, f"no event files in {logdir}"
+    events = tfevents.read_scalars(logdir)
+    n = 0
+    for r in _rows(os.path.join(logdir, "metrics.jsonl")):
+        if "step" not in r:
+            continue
+        for k, v in r.items():
+            if k in ("step", "time") or not isinstance(v, float):
+                continue
+            got = events.get(k, {}).get(r["step"])
+            assert got == np.float32(v), (k, r["step"], got, v)
+            n += 1
+    log(f"[charts] event files {files}: {n} scalars, each equal as float32 "
+        f"to its metrics.jsonl row")
+    assert n > 0
+    return {"files": len(files), "scalars": n}
+
+
+def notebook_leg(kernels, workdir: str, device: str = "cuda") -> dict:
+    """The port's two viz notebooks (``container-gpu-viz/notebooks``)
+    run cell by cell as scripts (``tools/run_notebook``), each in a
+    process of its own, both at once, against the runs under the
+    charts' ``/efs`` (``FS_ROOT``) as the Jupyter pod would run them:
+    their detection counts, no JAX module loaded, and 2 ROIAlign forward
+    launches each (one predict forward)."""
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here,
+               FS_ROOT=os.path.join(workdir, "efs"), EKSML_NB_DEVICE=device,
+               EKSML_NB_CONFIG=" ".join(VARIANT_BASE))
+    env.pop("DATA_DIR", None)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in NOTEBOOKS:
+        path = os.path.join(here, "container-gpu-viz", "notebooks", name)
+        f = open(os.path.join(workdir, f"notebook-{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", NOTEBOOK_CHILD, path, LAUNCH_LINE],
+            stdout=f, stderr=subprocess.STDOUT, cwd=here, env=env,
+            start_new_session=True), f)
+    out = {}
+    try:
+        for name, (proc, f) in procs.items():
+            rc = proc.wait(timeout=CHARTS_BUDGET)
+            f.close()
+            with open(f.name) as g:
+                text = g.read()
+            assert rc == 0, (name, rc, text[-3000:])
+            launches = logged_launches(text)
+            count = int(re.search(r"^(\d+) detections$", text,
+                                  re.M).group(1))
+            assert "JAX MODULES []" in text, text[-2000:]
+            assert "<PIL.Image.Image image mode=RGB" in text
+            want = {kernels.fwd.name: 2, kernels.bwd.name: 0,
+                    kernels.copy.name: 0}
+            assert launches == want, (name, launches, want)
+            lines = [line for line in text.splitlines()
+                     if line.startswith(("using run:", "latest step:",
+                                         "image:", "output/", "resize"))
+                     or re.match(r"^\d+ detections$", line)]
+            log(f"[charts] notebook {name}: " + "; ".join(lines)
+                + f"; launches {launches}")
+            out[name] = {"detections": count, "launches": launches}
+    finally:
+        for proc, f in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            f.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_charts(kernels, seed: int, workdir: str, device: str = "cuda"):
     """The GPU charts' rendered commands for a one-card install
     (``gpus=1, gpus_per_node=1``), run as the pods would
@@ -4312,6 +4935,10 @@ def phase_charts(kernels, seed: int, workdir: str, device: str = "cuda"):
                                       "compile_ms", "wall_s", "launches")}
     out["f32"]["step_time_ms"] = [r["step_time_ms"] for r in f32["rows"]
                                   if "step_time_ms" in r]
+    out["events"] = check_event_files(logdir)
+    # the Jupyter pod's notebooks, while the f32 run is the only one
+    # under /efs (the notebooks take the newest run directory)
+    out["notebooks"] = notebook_leg(kernels, workdir, device)
 
     # the optimized overlay: SIGTERM, exit 77, relaunch, resume
     argv, env, items, port, logdir = chart_train_argv(
@@ -4387,7 +5014,19 @@ def phase_charts(kernels, seed: int, workdir: str, device: str = "cuda"):
     out["autoscaler_options"] = list(options)
 
     out["launches"] = {k.name: sum(leg["launches"][k.name] for leg in (
-        f32, stopped, again, served)) for k in kernels}
+        f32, stopped, again, served, *(
+            v for v in out["notebooks"].values() if isinstance(v, dict))))
+        for k in kernels}
+    from eksml_tpu_torch.utils.compile_cache import POLICY
+
+    log(f"[charts] restarts under the cuDNN policy "
+        f"{json.dumps({f'{m} {p}': v for (m, p), v in POLICY.items()})}: "
+        f"the f32 chart's step 1 {f32['compile_ms'][0] / 1e3:.1f} s (earlier "
+        f"runs on the card: 24.9-27.6 s), launcher start to step 1 "
+        f"{f32['first_step_s']:.1f} s (47.7-52.0 s); the optimized "
+        f"overlay's relaunch to its first resumed step "
+        f"{again['first_step_s']:.1f} s (28.1-31.2 s); the serve chart's "
+        f"/healthz 200 after {served['ready_s']:.1f} s (19.9-20.5 s)")
     return out
 
 
@@ -4401,6 +5040,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval-rank", default=None, metavar="RUN",
                    help="internal: one rank of the ranks phase's eval")
+    p.add_argument("--autotune-child", default=None, metavar="SPEC",
+                   help="internal: one point of the autotune phase")
     args = p.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
     unknown = set(phases) - set(PHASES)
@@ -4418,6 +5059,8 @@ def main(argv=None) -> int:
         return 2
     if args.eval_rank:
         return eval_rank(args.eval_rank)
+    if args.autotune_child:
+        return autotune_child(args.autotune_child)
     from eksml_tpu_torch.ops.roi_align import KERNELS
 
     log(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -4436,7 +5079,7 @@ def main(argv=None) -> int:
     engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
     bf16 = serve16 = cascade = variants = observed = charts = None
-    roofline = None
+    roofline = autotune = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -4516,6 +5159,10 @@ def main(argv=None) -> int:
         if "roofline" in phases:
             roofline = timed(walls, "roofline", phase_roofline, KERNELS,
                              args.seed, workdir, observed, life)
+        if "autotune" in phases:
+            autotune = timed(walls, "autotune", phase_autotune, KERNELS,
+                             args.seed, workdir,
+                             autotune_reuse(train, roofline))
         if "charts" in phases:
             charts = timed(walls, "charts", phase_charts, KERNELS, args.seed,
                            workdir)
@@ -4572,6 +5219,9 @@ def main(argv=None) -> int:
                                   for label, rec in
                                   roofline["points"].items()}
                                  if roofline else None),
+                    # the fresh processes' own counts, summed
+                    "autotune": (autotune["launches"][k.name] if autotune
+                                 else None),
                     "charts": (charts["launches"][k.name] if charts
                                else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -4669,6 +5319,9 @@ def main(argv=None) -> int:
             {"points": {label: {k: rec[k] for k in keys}
                         for label, rec in roofline["points"].items()},
              "eval_ckpt": roofline.get("eval_ckpt")}))
+    if autotune is not None:
+        log(f"[autotune] on {cards}: " + json.dumps(
+            {k: v for k, v in autotune.items() if k != "launches"}))
     if charts is not None:
         log(f"[charts] on {cards}: " + json.dumps(
             {k: v for k, v in charts.items() if k != "launches"}))

@@ -17,8 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
     On CUDA this also pins true float32 (cuDNN convolutions default to
     TF32, which keeps about three decimal digits, while the reference
     computes ``TRAIN.PRECISION=float32`` in full float32), keeps
-    bfloat16 matrix products' reductions in float32, and turns on
-    cuDNN's autotune, which the serving warmup runs for every shape."""
+    bfloat16 matrix products' reductions in float32.  How cuDNN picks
+    its algorithms (autotune or heuristics) is set by the caller that
+    knows its mode and precision (``utils/compile_cache.py``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -36,5 +37,4 @@ def resolve_device(device="cuda") -> torch.device:
         # (cuBLAS's split-K would otherwise reduce partial sums in bf16)
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
-        torch.backends.cudnn.benchmark = True
     return dev

@@ -34,6 +34,7 @@ from eksml_tpu_torch.evalcoco.cocoeval import COCOEvaluator
 from eksml_tpu_torch.parallel.distributed import (collective_device,
                                                   process_count,
                                                   process_index)
+from eksml_tpu_torch.utils.compile_cache import choose_cudnn_algorithms
 
 log = logging.getLogger(__name__)
 
@@ -182,6 +183,8 @@ def run_evaluation(model, cfg, records: List[Dict],
       ``detections``), ``accumulate_s`` and ``wall_s``.
     """
     device = resolve_device(device)
+    # an eval inside a training process keeps the trainer's choice
+    choose_cudnn_algorithms(cfg, "eval", keep_process_policy=True)
     t0 = time.perf_counter()
     timings = {} if timings is None else timings
     timings.update(build_s=[], predict_s=[], post_s=0.0, post_images=0,
@@ -356,6 +359,8 @@ def make_eval_fn(cfg, device="cuda", records: Optional[List[Dict]] = None,
     from eksml_tpu_torch.data.coco import CocoDataset
 
     device = resolve_device(device)
+    # an eval inside a training process keeps the trainer's choice
+    choose_cudnn_algorithms(cfg, "eval", keep_process_policy=True)
     state: Dict = {}
 
     def eval_fn(model, step):

@@ -2,5 +2,5 @@
 detection overlay (``viz.draw_final_outputs``)."""
 
 from eksml_tpu_torch.predict.predictor import (  # noqa: F401
-    DetectionResult, OfflinePredictor, detections_from_raw)
+    DetectionResult, OfflinePredictor, detections_from_raw, predict_image)
 from eksml_tpu_torch.predict.viz import draw_final_outputs  # noqa: F401

@@ -1,6 +1,7 @@
 """Single-image detector on the serving engine
 (``eksml_tpu/predict/predictor.py``: ``restore_predict_params``,
-``DetectionResult``, ``detections_from_raw``, ``OfflinePredictor``).
+``DetectionResult``, ``detections_from_raw``, ``OfflinePredictor``,
+``predict_image``).
 
 ``OfflinePredictor`` runs through the same bucket-padded
 ``InferenceEngine`` the online server dispatches, with params handed in
@@ -112,3 +113,10 @@ class OfflinePredictor:
                   if score_thresh is None else score_thresh)
         return detections_from_raw(
             {k: v[0] for k, v in out.items()}, scale, h, w, thresh)
+
+
+def predict_image(img: np.ndarray,
+                  predictor: OfflinePredictor) -> List[DetectionResult]:
+    """Same call shape as TensorPack's ``predict_image(img, pred)``
+    (the viz notebook's): ``predictor(img)``."""
+    return predictor(img)

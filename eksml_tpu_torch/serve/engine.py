@@ -39,6 +39,7 @@ import torch
 
 from eksml_tpu_torch import telemetry
 from eksml_tpu_torch.device import resolve_device
+from eksml_tpu_torch.utils.compile_cache import choose_cudnn_algorithms
 
 log = logging.getLogger(__name__)
 
@@ -93,6 +94,8 @@ class InferenceEngine:
         from eksml_tpu_torch.models import MaskRCNN
 
         self.device = resolve_device(device)
+        #: cuDNN's algorithm choice for this process
+        self.cudnn = choose_cudnn_algorithms(cfg, "serve")
         if params is None:
             if not checkpoint_dir:
                 raise ValueError("need params (a MaskRCNN state_dict) or "

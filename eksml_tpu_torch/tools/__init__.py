@@ -12,5 +12,7 @@
 - :mod:`bench` — the training ladder: images/s per GPU by rung, the
   first step apart, MFU and the roofline's prediction beside each;
 - :mod:`eval_ckpt` — a training checkpoint's COCO AP from the command
-  line.
+  line;
+- :mod:`run_notebook` — a notebook's code cells run in order as a script
+  (the viz notebooks where Jupyter's kernel machinery is absent).
 """

@@ -16,7 +16,9 @@ of every new shape), one step counted by the roofline
 timed steps, each ended on the device.  It prints one JSON line per rung
 (and writes ``bench_rung_<name>.json`` under ``--out``):
 
-- ``step_time_ms``: the median timed step; ``value``: images/s per GPU;
+- ``step_time_ms``: the median timed step (each in ``step_times_ms``);
+  ``value``: images/s per GPU; ``cudnn``: the algorithm choice the rung
+  ran under (``utils/compile_cache.py``);
 - ``tflops_per_step``: the counted FLOPs without REMAT's recompute
   (``recompute_tflops`` apart); ``mfu``: those FLOPs per second over the
   data-sheet peak of the rung's precision, named in ``mfu_peak``;
@@ -115,9 +117,15 @@ def _sync(device) -> None:
 
 
 def run_rung(rung: Dict[str, Any], args, base_cfg=None,
-             device=None) -> Dict[str, Any]:
+             device=None, count: bool = True,
+             ready=None) -> Dict[str, Any]:
     """One rung of the ladder on ``device`` (default ``args.device``);
-    → its record (the JSON line)."""
+    → its record (the JSON line).  ``count=False`` runs the second
+    warmup step uncounted: the record then holds the measured keys only,
+    none of the roofline's.  ``ready``, if given, is called once the
+    batch, the model and the optimizer are on the device, just before
+    step 1 (a caller that times processes one at a time holds each
+    there)."""
     import numpy as np
     import torch
 
@@ -131,10 +139,12 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
     from eksml_tpu_torch.profiling import predict as predict_mod
     from eksml_tpu_torch.train import (cast_for_storage, make_optimizer,
                                        make_train_step)
+    from eksml_tpu_torch.utils.compile_cache import choose_cudnn_algorithms
 
     device = resolve_device(device or args.device)
     cfg = rung_config(base_cfg if base_cfg is not None else global_cfg,
                       rung, args)
+    cudnn = choose_cudnn_algorithms(cfg, "train")
     h, w = rung["pad_hw"] or (rung["image_size"],) * 2
     fwd_only = bool(rung.get("forward_only"))
     steps = int(rung.get("steps") or args.steps)
@@ -179,22 +189,28 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
         _sync(device)
         return out, time.perf_counter() - t0
 
+    if ready is not None:
+        ready()
     out, first_s = timed(0)
-    # one warmup step counted (the trainer's first-step pricing path)
-    pri = priorities()
-    counter = predict_mod.train_counter(model, optimizer, batch, pri)
-    with counter:
-        out = step(batch, pri, 1)
-    if counter.error is not None:
-        raise RuntimeError("the step counter failed") from counter.error
-    meta = predict_mod.train_meta(model, batch)
-    if fwd_only:
-        meta.update(kind="forward", grad_bytes=0)
-    counts = counter.counts(**meta)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else None)
-    pred = predict_mod.predict_for_step(counts, device_kind=kind,
-                                        precision=str(cfg.TRAIN.PRECISION))
+    pred = None
+    if count:
+        # one warmup step counted (the trainer's first-step pricing path)
+        pri = priorities()
+        counter = predict_mod.train_counter(model, optimizer, batch, pri)
+        with counter:
+            out = step(batch, pri, 1)
+        if counter.error is not None:
+            raise RuntimeError("the step counter failed") from counter.error
+        meta = predict_mod.train_meta(model, batch)
+        if fwd_only:
+            meta.update(kind="forward", grad_bytes=0)
+        counts = counter.counts(**meta)
+        pred = predict_mod.predict_for_step(
+            counts, device_kind=kind, precision=str(cfg.TRAIN.PRECISION))
+    else:
+        out, _ = timed(1)
     for i in range(2, warmup):
         out, _ = timed(i)
     times = []
@@ -212,12 +228,8 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
         raise RuntimeError(f"rung {rung['name']}: non-finite loss {loss}")
 
     step_ms = float(np.median(times))
-    spec = predict_mod.chip_spec(pred["target"])
     precision = str(cfg.TRAIN.PRECISION)
-    peak = float(spec["peak_flops"][precision])
-    tflops = pred["model_flops"] / 1e12
-    hbm = pred["hbm"]
-    return {
+    rec = {
         "metric": ("maskrcnn_r50fpn_fwd_microbench" if fwd_only
                    else "maskrcnn_r50fpn_train_throughput"),
         "operating_point": rung["name"],
@@ -235,7 +247,22 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
         "step_time_ms": step_ms,
         "step_time_min_ms": min(times),
         "step_time_max_ms": max(times),
+        "step_times_ms": times,
+        "cudnn": cudnn["setting"],
         "loss": loss,
+        "measured_peak_bytes": measured_peak,
+        "measured_allocated_before_step_bytes": measured_before,
+        "device": str(device),
+        "device_kind": kind or "cpu",
+        "card": card_name_and_limit(device),
+    }
+    if pred is None:
+        return rec
+    peak = float(predict_mod.chip_spec(pred["target"])["peak_flops"][
+        precision])
+    tflops = pred["model_flops"] / 1e12
+    hbm = pred["hbm"]
+    rec.update({
         "tflops_per_step": tflops,
         "recompute_tflops": pred["recompute_flops"] / 1e12,
         "mfu": tflops * 1e12 / (step_ms / 1e3) / peak,
@@ -252,12 +279,8 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
         "predicted_peak_component": hbm.get("peak_component"),
         "predicted_live_at_peak_bytes": hbm["live_at_peak_by_component"],
         "predicted_top_tensors": hbm["top_tensors"][:5],
-        "measured_peak_bytes": measured_peak,
-        "measured_allocated_before_step_bytes": measured_before,
-        "device": str(device),
-        "device_kind": kind or "cpu",
-        "card": card_name_and_limit(device),
-    }
+    })
+    return rec
 
 
 def parse_args(argv=None):

@@ -8,7 +8,9 @@ are rendered here by the subset of Go templates and sprig that they use
 is the port's own copy of ``tools/render_charts.py``'s.
 
 Each chart's default values, and each overlay listed in ``GOLDENS``, are
-rendered into ``charts/golden-gpu/``; the committed files are held by
+rendered into ``charts/golden-gpu/``, and so are the training chart's
+subcharts (Jupyter and TensorBoard, ``SUBCHART_GOLDENS``) under both of
+its installs; the committed files are held by
 ``--check`` and by ``tests/test_torch_charts.py``, so any template or
 values change shows up as a manifest diff.  :func:`render` takes values
 files and ``--set``-style overrides as ``helm template -f`` / ``--set``
@@ -33,11 +35,14 @@ import yaml
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-#: per chart: the template (and values key) it renders
+#: per chart: the template (and values key) it renders, and its
+#: subcharts (``charts/<name>/``, each rendered with the values under its
+#: name and ``global``, as helm gives a subchart)
 CHART_SPECS = {
-    "charts/maskrcnn-gpu": {"main": "maskrcnn"},
-    "charts/serve-gpu": {"main": "serve"},
-    "charts/autoscaler-gpu": {"main": "autoscaler"},
+    "charts/maskrcnn-gpu": {"main": "maskrcnn",
+                            "subcharts": ("jupyter", "tensorboard")},
+    "charts/serve-gpu": {"main": "serve", "subcharts": ()},
+    "charts/autoscaler-gpu": {"main": "autoscaler", "subcharts": ()},
 }
 #: golden file name -> (chart, values files over the chart's values.yaml)
 GOLDENS = {
@@ -47,15 +52,23 @@ GOLDENS = {
     "serve-gpu__serve.yaml": ("charts/serve-gpu", ()),
     "autoscaler-gpu__autoscaler.yaml": ("charts/autoscaler-gpu", ()),
 }
+#: golden file name -> (chart, values files, subchart)
+SUBCHART_GOLDENS = {
+    f"maskrcnn-gpu__{prefix}{sub}.yaml": ("charts/maskrcnn-gpu", files, sub)
+    for prefix, files in (("", ()), ("maskrcnn-optimized__",
+                                     ("values-optimized.yaml",)))
+    for sub in CHART_SPECS["charts/maskrcnn-gpu"]["subcharts"]}
 GOLDEN_DIR = os.path.join("charts", "golden-gpu")
 # pinned render identity: goldens must be byte-stable
 RELEASE = "eksml"
 TIMESTAMP = "2026-01-01-00-00-00"
 IMAGE = "ACCOUNT.dkr.ecr.REGION.amazonaws.com/eksml-gpu:golden"
+VIZ_IMAGE = "ACCOUNT.dkr.ecr.REGION.amazonaws.com/eksml-gpu-viz:golden"
 # install-time values an operator must supply (the charts keep them ""
 # and `required`), pinned as a `helm template -f` values file would
 GOLDEN_VALUES = {
-    "maskrcnn": {"maskrcnn": {"image": IMAGE}},
+    "maskrcnn": {"maskrcnn": {"image": IMAGE},
+                 "jupyter": {"image": VIZ_IMAGE}},
     # canary.enabled here (the chart's default is off) so the goldens and
     # the tests read the canary track's template and --config keys too
     "serve": {"serve": {"image": IMAGE, "canary": {"enabled": True}}},
@@ -452,22 +465,32 @@ def chart_values(chart: str, values_files: Sequence[str] = (),
 
 def render(chart: str, values_files: Sequence[str] = (),
            overrides: Optional[Mapping[str, object]] = None,
-           release: str = RELEASE) -> str:
+           release: str = RELEASE, subchart: Optional[str] = None) -> str:
     """The manifest of ``chart``'s template under :func:`chart_values`,
-    installed as ``release`` (which names the training run's directory).
-    Raises :class:`RenderError` on a template ``fail`` or a missing
-    ``required`` value, and when the output is not a stream of k8s
-    documents."""
-    main = CHART_SPECS[chart]["main"]
+    installed as ``release`` (which names the training run's directory);
+    with ``subchart``, that subchart's template under its own
+    ``values.yaml``, the chart's values under its name and the chart's
+    ``global``.  Raises :class:`RenderError` on a template ``fail`` or a
+    missing ``required`` value, and when the output is not a stream of
+    k8s documents."""
+    values = chart_values(chart, values_files, overrides)
+    if subchart is None:
+        base, name = chart, CHART_SPECS[chart]["main"]
+    else:
+        if subchart not in CHART_SPECS[chart]["subcharts"]:
+            raise RenderError(f"{chart} has no subchart {subchart!r}")
+        base, name = f"{chart}/charts/{subchart}", subchart
+        values = dict(_merge(yaml.safe_load(_read(f"{base}/values.yaml")),
+                             values.get(subchart) or {}),
+                      **{"global": values["global"]})
     helpers = {}
-    if os.path.exists(os.path.join(REPO, chart, "templates",
+    if os.path.exists(os.path.join(REPO, base, "templates",
                                    "_helpers.tpl")):
         nodes, _, _ = _parse(_tokenize(
-            _read(f"{chart}/templates/_helpers.tpl")))
+            _read(f"{base}/templates/_helpers.tpl")))
         helpers = {n[1]: n[2] for n in nodes if n[0] == "define"}
-    eng = Engine({"Values": chart_values(chart, values_files, overrides),
-                  "Release": {"Name": release}}, helpers)
-    text = eng.render(_read(f"{chart}/templates/{main}.yaml"))
+    eng = Engine({"Values": values, "Release": {"Name": release}}, helpers)
+    text = eng.render(_read(f"{base}/templates/{name}.yaml"))
     docs = [d for d in yaml.safe_load_all(text) if d]
     if not docs or any("kind" not in d for d in docs):
         raise RenderError(f"{chart}: the rendered manifest is not a k8s "
@@ -476,9 +499,13 @@ def render(chart: str, values_files: Sequence[str] = (),
 
 
 def render_all() -> Dict[str, str]:
-    """{golden file name: rendered text} for every entry of ``GOLDENS``."""
-    return {name: render(chart, files)
-            for name, (chart, files) in GOLDENS.items()}
+    """{golden file name: rendered text} for every entry of ``GOLDENS``
+    and ``SUBCHART_GOLDENS``."""
+    out = {name: render(chart, files)
+           for name, (chart, files) in GOLDENS.items()}
+    out.update({name: render(chart, files, subchart=sub)
+                for name, (chart, files, sub) in SUBCHART_GOLDENS.items()})
+    return out
 
 
 def main(argv=None) -> int:

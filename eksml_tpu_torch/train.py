@@ -90,6 +90,7 @@ from eksml_tpu_torch.utils import CheckpointManager, MetricWriter
 from eksml_tpu_torch.utils.checkpoint import (full_optimizer_state,
                                               full_state_dict,
                                               load_full_state)
+from eksml_tpu_torch.utils.compile_cache import choose_cudnn_algorithms
 
 log = logging.getLogger("eksml_tpu_torch.train")
 
@@ -400,6 +401,8 @@ class Trainer:
         self.logdir = logdir
         self.eval_fn = eval_fn
         self.device = resolve_device(device)
+        #: cuDNN's algorithm choice for this process (``run_start`` row)
+        self.cudnn = choose_cudnn_algorithms(cfg, "train")
         self.world, self.rank = process_count(), process_index()
         if dist.is_initialized() and int(cfg.TRAIN.NUM_CHIPS) != self.world:
             raise ValueError(
@@ -424,7 +427,8 @@ class Trainer:
         self.step: Optional[int] = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg.TRAIN.SEED))
-        run_info = {"config_digest": _config_digest(cfg)}
+        run_info = {"config_digest": _config_digest(cfg),
+                    "cudnn": self.cudnn}
         self.writer = (MetricWriter(logdir, run_info=run_info)
                        if is_coordinator() else None)
         self._telemetry = _telemetry_knobs(cfg)

@@ -1,8 +1,10 @@
-"""Metric writing: ``metrics.jsonl`` always, TensorBoard event files when
-``torch.utils.tensorboard`` imports (a copy of
-``eksml_tpu/utils/metrics.py``; the reference's TensorBoard writer is
-optional in the same way), and a mirror of every scalar into the
-telemetry registry (``eksml_train_*`` gauges).
+"""Metric writing: ``metrics.jsonl``, TensorBoard event files of every
+scalar (``utils/tfevents.py``, the port's own writer: the files appear
+whatever is installed, where the reference's need ``flax.metrics``'
+TensorBoard backend), and a mirror of every scalar into the telemetry
+registry (``eksml_train_*`` gauges).  A copy of
+``eksml_tpu/utils/metrics.py``; ``enable_tensorboard=False`` writes no
+event file.
 
 JSONL contract:
 
@@ -25,6 +27,8 @@ import os
 import sys
 import time
 from typing import Dict, Optional
+
+from eksml_tpu_torch.utils.tfevents import EventFileWriter
 
 
 def _git_sha() -> str:
@@ -72,14 +76,7 @@ class MetricWriter:
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
         self._publish_registry = publish_registry
-        self._tb = None
-        if enable_tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-
-                self._tb = SummaryWriter(logdir)
-            except Exception:  # noqa: BLE001 — TensorBoard is optional
-                self._tb = None
+        self._tb = EventFileWriter(logdir) if enable_tensorboard else None
         self._write_run_start(run_info or {})
 
     def _write_run_start(self, run_info: Dict) -> None:
@@ -109,8 +106,9 @@ class MetricWriter:
         self._jsonl.write(json.dumps(rec, allow_nan=False) + "\n")
         self._jsonl.flush()
         if self._tb is not None:
-            for k, v in scalars.items():
-                self._tb.add_scalar(k, float(v), step)
+            self._tb.add_scalars(step, {k: float(v)
+                                        for k, v in scalars.items()},
+                                 wall_time=rec["time"])
 
     @staticmethod
     def _mirror_to_registry(step: int, scalars: Dict[str, float]) -> None:

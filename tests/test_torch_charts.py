@@ -203,3 +203,86 @@ def test_set_values_types_like_helm():
     vals = rc.set_values({"a": {"b": 1, "c": "x"}},
                          {"a.b": "8", "a.d.e": "true", "a.c": ""})
     assert vals == {"a": {"b": 8, "c": "", "d": {"e": True}}}
+
+
+# ---------------------------------------------------------------------
+# the training chart's side services (charts/maskrcnn-gpu/charts/*)
+# ---------------------------------------------------------------------
+
+
+def _service_and_pod(text):
+    docs = docs_of(text)
+    (svc,) = [d for d in docs if d["kind"] == "Service"]
+    ((dep, pod),) = pod_specs(docs)
+    return svc, dep, pod
+
+
+@pytest.mark.parametrize("name", sorted(rc.SUBCHART_GOLDENS))
+def test_subchart_goldens_equal_the_render(name):
+    chart, files, sub = rc.SUBCHART_GOLDENS[name]
+    text = rc.render(chart, files, subchart=sub)
+    with open(os.path.join(rc.REPO, rc.GOLDEN_DIR, name)) as f:
+        assert f.read() == text
+    for token in TPU_ONLY:
+        assert token not in text, token
+    svc, dep, pod = _service_and_pod(text)
+    assert svc["spec"]["type"] == "LoadBalancer"
+    assert svc["spec"]["selector"] == dep["spec"]["selector"]["matchLabels"]
+    (vol,) = pod["volumes"]
+    assert vol["persistentVolumeClaim"]["claimName"] == "eksml-shared-fs"
+
+
+@pytest.mark.parametrize("files", OVERLAYS[:2], ids=["default", "optimized"])
+def test_the_jupyter_pod_takes_one_gpu_of_the_training_nodes(files):
+    svc, _, pod = _service_and_pod(rc.render(TRAIN_CHART, files,
+                                             subchart="jupyter"))
+    (main_pod,) = [p for _, p in pod_specs(docs_of(rc.render(TRAIN_CHART,
+                                                             files)))]
+    c = container(pod)
+    for side in ("requests", "limits"):
+        assert c["resources"][side] == {"nvidia.com/gpu": 1}
+    assert pod["nodeSelector"] == main_pod["nodeSelector"] == {
+        "node.kubernetes.io/instance-type": "p5.48xlarge"}
+    # one setting moves both pods
+    moved = {"global.node_selector.gpu": "h100"}
+    (main_pod,) = [p for _, p in pod_specs(docs_of(rc.render(
+        TRAIN_CHART, files, moved)))]
+    _, _, moved_pod = _service_and_pod(rc.render(TRAIN_CHART, files, moved,
+                                                 subchart="jupyter"))
+    assert moved_pod["nodeSelector"] == main_pod["nodeSelector"] == {
+        "node.kubernetes.io/instance-type": "p5.48xlarge", "gpu": "h100"}
+    assert {"key": "nvidia.com/gpu", "operator": "Exists",
+            "effect": "NoSchedule"} in pod["tolerations"]
+    # TLS from the viz image's self-signed cert, 443 -> 8888
+    assert c["command"][:2] == ["jupyter", "lab"]
+    assert {"--certfile=/labs-cert.pem", "--keyfile=/labs-key.pem",
+            "--notebook-dir=/notebooks"} <= set(c["command"])
+    assert svc["spec"]["ports"] == [{"port": 443, "targetPort": 8888}]
+    assert c["image"] == rc.VIZ_IMAGE
+    # the notebooks find the runs under the shared filesystem's mount
+    (mount,) = c["volumeMounts"]
+    assert {e["name"]: e["value"] for e in c["env"]} == {
+        "FS_ROOT": mount["mountPath"]} == {"FS_ROOT": "/efs"}
+    assert not mount.get("readOnly")
+    # an install without the viz image fails the render
+    with pytest.raises(rc.RenderError, match="jupyter.image"):
+        rc.render(TRAIN_CHART, files, {"jupyter.image": ""},
+                  subchart="jupyter")
+
+
+@pytest.mark.parametrize("files", OVERLAYS[:2], ids=["default", "optimized"])
+def test_tensorboard_reads_every_run_without_a_gpu(files):
+    svc, _, pod = _service_and_pod(rc.render(TRAIN_CHART, files,
+                                             subchart="tensorboard"))
+    c = container(pod)
+    assert "resources" not in c and "nodeSelector" not in pod
+    assert "nvidia.com/gpu" not in yaml.safe_dump(pod)
+    (mount,) = c["volumeMounts"]
+    assert mount == {"mountPath": "/efs", "name": "shared-fs",
+                     "readOnly": True}
+    assert c["command"] == ["tensorboard", "--logdir=/efs/", "--bind_all",
+                            "--port=6006"]
+    assert c["image"] == "tensorflow/tensorflow:2.15.0"
+    assert svc["spec"]["ports"] == [{"port": 80, "targetPort": 6006}]
+    with pytest.raises(rc.RenderError, match="no subchart"):
+        rc.render("charts/serve-gpu", subchart="tensorboard")
