@@ -137,7 +137,8 @@ roofline — the training step's H100 roofline (``profiling/predict.py``)
              largest tensors) against ``torch.cuda.max_memory_allocated``,
              the kernels' launches.  Then ``tools/eval_ckpt.py`` on the
              lifecycle run's newest checkpoint over 8 shapes JPEGs, its
-             AP equal to ``run_evaluation``'s on the same weights.
+             AP equal to ``run_evaluation``'s on the same weights.  Each
+             point's ladder line is banked as ``bench --out`` banks it.
 
 autotune — cuDNN's algorithm choice, paid at every process start
              (``utils/compile_cache.py``): the full autotune and autotune
@@ -174,8 +175,26 @@ charts  — the GPU charts (``charts/{maskrcnn,serve,autoscaler}-gpu``)
              process's kernel launches, from the line it logs at exit;
              the restarts' times beside earlier runs' (PERF.md).
 
+reports — the port's offline layer (``eksml_tpu_torch/tools``) on this
+             call's runs: ``perf_gate`` counts its ``128_b1`` rung (SMOKE
+             widths, f32) on the card, the three kernels launching, and
+             gates it against the bank the CPU counted
+             (``artifacts/h100/``), the FLOPs of both printed; then
+             ``run_report`` over the observe run (``python -m``), the
+             operator's logdirs and the fleet's, with ``--artifacts`` the
+             roofline phase's ladder lines and that prediction: every
+             section whose artifact exists renders from it, the goodput
+             ratio is ``build_ledger``'s, the calibration's measured steps
+             are the ladder lines'; the roofline's calibration on the
+             card (scale per line, ``model_error_pct``) and the observe
+             run's effective MFU.
+
 Then it prints one JSON line of kernel records, the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``.
+limit, and, last, ``{"ok": true, "device": {...}}``.  Whether the phases
+pass or fail, no process of the run outlives it: the script is the child
+subreaper of what it starts, and at its end it SIGKILLs every descendant
+still running (and any process carrying its run's environment tag),
+listing them on stderr with ``[cleanup]``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -184,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import copy
 import json
 import logging
@@ -209,7 +229,8 @@ PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "lifecycle", "fleet", "operator", "dist", "ranks",
           "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
-          "variants_reference", "observe", "roofline", "autotune", "charts")
+          "variants_reference", "observe", "roofline", "autotune", "charts",
+          "reports")
 
 # predict shapes at the 1344² canvas: P2..P5 and the two ROIAlign calls
 CANVAS = 1344
@@ -250,6 +271,130 @@ def timed(walls: dict, name: str, fn, *args, **kwargs):
     finally:
         walls[name] = time.perf_counter() - t0
         log(f"[phase] {name}: {walls[name]:.1f} s wall")
+
+
+#: set in this process's environment at the start of a run, so every
+#: process the run starts carries it down (the leftover sweep reads it)
+RUN_TAG_VAR = "CHIP_SMOKE_RUN"
+
+
+def adopt_orphans() -> str:
+    """Make this process the child subreaper of everything it starts (an
+    orphaned grandchild is re-parented here, not to init) and tag the
+    environment that the run's processes inherit.  Returns the tag."""
+    import ctypes
+    import uuid
+
+    pr_set_child_subreaper = 36
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(pr_set_child_subreaper, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass            # the environment tag alone finds them
+    tag = f"{os.getpid()}-{uuid.uuid4().hex}"
+    os.environ[RUN_TAG_VAR] = tag
+    return tag
+
+
+def _proc_table():
+    """``{pid: (ppid, state, cmdline, environ, process group)}`` of the
+    processes this process may read under /proc."""
+    table = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            try:
+                with open(f"/proc/{name}/environ", "rb") as f:
+                    env = f.read()
+            except OSError:
+                env = b""
+        except (OSError, IndexError):
+            continue            # ended while read
+        table[int(name)] = (int(fields[1]), fields[0], cmd.strip(), env,
+                            int(fields[2]))
+    return table
+
+
+def leftover_processes(tag: str) -> dict:
+    """``{pid: description}`` of the live processes this run started that
+    still run: descendants of this process (orphans come here, see
+    :func:`adopt_orphans`) and any process whose environment carries
+    ``tag``.  The multiprocessing resource tracker of this process is
+    left out: it ends with this process."""
+    from multiprocessing import resource_tracker
+
+    me = os.getpid()
+    table = _proc_table()
+    mine = {me}
+    grew = True
+    while grew:
+        grew = False
+        for pid, (ppid, *_rest) in table.items():
+            if ppid in mine and pid not in mine:
+                mine.add(pid)
+                grew = True
+    needle = f"{RUN_TAG_VAR}={tag}".encode()
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    return {pid: f"pid {pid} (parent {ppid}, state {state}): {cmd[:300]}"
+            for pid, (ppid, state, cmd, env, _) in table.items()
+            if pid not in (me, tracker) and state != "Z"
+            and (pid in mine or needle in env.split(b"\0"))}
+
+
+def stop_leftovers(tag: str, budget: float = 10.0) -> list:
+    """SIGKILL every process of :func:`leftover_processes`, reap this
+    process's ended children, and wait up to ``budget`` seconds until none
+    is left.  Returns the descriptions of what it found (written to
+    stderr: the last line of stdout is the run's result)."""
+    import signal
+
+    found = leftover_processes(tag)
+    if found:
+        print("[cleanup] processes of this run still running at its end "
+              f"(SIGKILL): {len(found)}\n" + "\n".join(found.values()),
+              file=sys.stderr, flush=True)
+    deadline = time.monotonic() + budget
+    while True:
+        for pid in found:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0] > 0:
+                pass
+        found = leftover_processes(tag)
+        if not found or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if found:
+        print("[cleanup] still running after SIGKILL:\n"
+              + "\n".join(found.values()), file=sys.stderr, flush=True)
+    return list(found.values())
+
+
+def kill_session(proc) -> None:
+    """SIGKILL the session that ``proc`` leads (started with
+    ``start_new_session=True``): the processes it started go with it, also
+    once ``proc`` itself has ended (those are listed on stderr with
+    ``[cleanup]``).  Then reap ``proc``."""
+    import signal
+
+    if proc.poll() is not None:
+        left = [f"pid {pid} (parent {ppid}, state {state}): {cmd[:300]}"
+                for pid, (ppid, state, cmd, _, pgrp) in _proc_table().items()
+                if pgrp == proc.pid and state != "Z"]
+        if left:
+            print(f"[cleanup] {len(left)} process(es) of the session of "
+                  f"{' '.join(map(str, proc.args))[:200]} still running "
+                  f"after it exited {proc.returncode} (SIGKILL):\n"
+                  + "\n".join(left), file=sys.stderr, flush=True)
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
 
 
 def gpu_name_and_limit() -> str:
@@ -1967,14 +2112,7 @@ class OperatorRun:
         return self.proc.wait(timeout=OPERATOR_BUDGET)
 
     def kill(self) -> None:
-        import signal
-
-        if self.proc.poll() is None:
-            try:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            self.proc.wait()
+        kill_session(self.proc)
 
 
 def _operator_series(logdir: str) -> dict:
@@ -2076,10 +2214,12 @@ def phase_operator(workdir: str, device: str = "cuda", cards=None):
     ranks are NCCL ranks on the cards.  With one, the wave runs as gloo
     ranks on the CPU, and on the card a world-1 trainer sees the 1 -> 2
     decision refused, is stopped by the operator (exit 77) and relaunched
-    by a second one: it resumes from the forced checkpoint and steps."""
+    by a second one: it resumes from the forced checkpoint and steps.
+    The CPU's wave and the card's run at the same time (their logdirs,
+    ports and capacity files are their own), so each one's downtimes
+    are read beside the other's processes."""
     import torch
-
-    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+    from concurrent.futures import ThreadPoolExecutor
 
     cards = torch.cuda.device_count() if cards is None else cards
     out = {}
@@ -2089,11 +2229,29 @@ def phase_operator(workdir: str, device: str = "cuda", cards=None):
                                     "cuda", wave, "cuda")
         return out
     log(f"[operator] {cards} card(s): the 1 -> 2 -> 1 wave runs as gloo "
-        "ranks on the CPU (two ranks never share a card)")
-    out["wave"] = operator_wave(os.path.join(workdir, "operator-cpu"),
-                                "cpu", wave, "cpu")
+        "ranks on the CPU (two ranks never share a card)"
+        + (", beside the card's world-1 trainer" if device == "cuda"
+           else ""))
     if device != "cuda":
+        out["wave"] = operator_wave(os.path.join(workdir, "operator-cpu"),
+                                    "cpu", wave, "cpu")
         return out
+    with ThreadPoolExecutor(1, thread_name_prefix="operator-cpu") as pool:
+        cpu = pool.submit(operator_wave, os.path.join(workdir,
+                                                      "operator-cpu"),
+                          "cpu", wave, "cpu")
+        out["card"] = operator_card(workdir)
+        out["wave"] = cpu.result()
+    return out
+
+
+def operator_card(workdir: str) -> dict:
+    """On the card, a world-1 trainer under the operator: the 1 -> 2
+    decision refused, capacity 1 held, the operator's SIGTERM (exit 77 at
+    a forced checkpoint), and a second operator that relaunches it from
+    that checkpoint to one more step."""
+    from eksml_tpu_torch.utils.checkpoint import CheckpointManager
+
     card_dir = os.path.join(workdir, "operator-card")
     first = operator_wave(card_dir, "cuda", ((2, "refused"), (1, "hold")),
                           "card")
@@ -2118,10 +2276,9 @@ def phase_operator(workdir: str, device: str = "cuda", cards=None):
         f"{forced}); a second operator relaunched it and it logged step "
         f"{step['step']} {down:.1f} s after the SIGTERM; stopped again: "
         f"{stop[-1]['exit_codes']}")
-    out["card"] = {"refused": first["transitions"], "forced_step": forced,
-                   "first_step": step["step"], "downtime_s": down,
-                   "series": first["series"], "health": first["health"]}
-    return out
+    return {"refused": first["transitions"], "forced_step": forced,
+            "first_step": step["step"], "downtime_s": down,
+            "series": first["series"], "health": first["health"]}
 
 
 # ---------------------------------------------------------------------
@@ -3370,12 +3527,35 @@ def check_capture(path: str, tag: str) -> dict:
             "kernels": kernels}
 
 
+@contextlib.contextmanager
+def keep_prediction(seen: dict):
+    """Within: each trainer's first-step roofline (``Trainer.
+    last_prediction``, priced where the run's step was counted) kept in
+    ``seen["prediction"]``."""
+    from eksml_tpu_torch import train
+
+    real = train.Trainer._counted_step
+
+    def counted(self, *a, **k):
+        try:
+            return real(self, *a, **k)
+        finally:
+            seen["prediction"] = self.last_prediction
+
+    train.Trainer._counted_step = counted
+    try:
+        yield seen
+    finally:
+        train.Trainer._counted_step = real
+
+
 def observe_main(kernels, workdir: str, device: str = "cuda"):
     """``train.main`` at full width, f32, with the chart's telemetry
     (ephemeral port, a short /healthz bound, tracing, goodput) and
     ``--profile 2``, while a thread scrapes /metrics, /healthz and the
     /debugz endpoints; the loader stalls once, after the scraper's
-    debugz requests."""
+    debugz requests.  The run's own first-step roofline is kept
+    (``prediction``) for the reports phase's effective MFU."""
     from eksml_tpu_torch import train
     from eksml_tpu_torch.config import config
     from eksml_tpu_torch.data import loader as loader_mod
@@ -3443,15 +3623,17 @@ def observe_main(kernels, workdir: str, device: str = "cuda"):
         k.launches = 0
     loader_mod.DetectionLoader.batches = stalling
     try:
-        rc = train.main([
-            "--device", device, "--synthetic", "--logdir", run,
-            "--total-steps", str(OBSERVE_STEPS), "--profile", "2",
-            "--config", f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
-            "TRAIN.LOG_PERIOD=1", f"TRAIN.STEPS_PER_EPOCH={OBSERVE_STEPS}",
-            "TELEMETRY.PORT=0",
-            f"TELEMETRY.HEALTHZ_STALE_SEC={OBSERVE_STALE_S}",
-            "TELEMETRY.TRACING.ENABLED=True",
-            "TELEMETRY.GOODPUT.ENABLED=True"])
+        with keep_prediction(seen):
+            rc = train.main([
+                "--device", device, "--synthetic", "--logdir", run,
+                "--total-steps", str(OBSERVE_STEPS), "--profile", "2",
+                "--config", f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}",
+                "TRAIN.LOG_PERIOD=1",
+                f"TRAIN.STEPS_PER_EPOCH={OBSERVE_STEPS}",
+                "TELEMETRY.PORT=0",
+                f"TELEMETRY.HEALTHZ_STALE_SEC={OBSERVE_STALE_S}",
+                "TELEMETRY.TRACING.ENABLED=True",
+                "TELEMETRY.GOODPUT.ENABLED=True"])
         t_end = time.time()
     finally:
         loader_mod.DetectionLoader.batches = real_batches
@@ -3463,6 +3645,7 @@ def observe_main(kernels, workdir: str, device: str = "cuda"):
     launches = {k.name: k.launches for k in kernels}
     assert rc == 0, f"train.main returned {rc}"
     _per_step(kernels, launches, OBSERVE_STEPS)
+    assert seen.get("prediction"), "the observe run priced no step"
 
     # the endpoints
     assert seen["families"], f"no /metrics scrape answered 200: {seen}"
@@ -3518,8 +3701,9 @@ def observe_main(kernels, workdir: str, device: str = "cuda"):
     with open(cli) as f:
         users = sum(1 for e in json.load(f)["traceEvents"]
                     if e.get("cat") == "user_annotation")
-    return {"launches": launches, "attribution": check_capture(
+    return {"run": run, "launches": launches, "attribution": check_capture(
                 cli, "f32 capture of steps 2-3 (--profile 2)"),
+            "prediction": seen["prediction"],
             "scopes_per_step": users / 2, "traces": traces,
             "goodput": final, "wall_s": wall,
             "healthz_503_after_s": first_503 - t0}
@@ -3801,15 +3985,19 @@ def _shares_line(rec, observed_pct) -> str:
     return ", ".join(rows)
 
 
-def roofline_points(kernels, seed: int, observed=None, device="cuda"):
+def roofline_points(kernels, seed: int, observed=None, device="cuda",
+                    ladder=None):
     """Each ``ROOFLINE_POINTS`` point through ``tools/bench.py``'s rung in
     this process (on this thread: the train phases' cuDNN autotune is
     reused): measured and predicted step, MFU, FLOPs, the components'
     predicted ms beside the observe phase's shares, the liveness peak
     against ``max_memory_allocated`` and its largest tensors, and the
-    kernels' launches (3 / 2 / 8 per step, the counted step included)."""
+    kernels' launches (3 / 2 / 8 per step, the counted step included).
+    With ``ladder`` each point's line is banked there as ``bench --out``
+    banks a rung's, named by the point (two points share a rung)."""
     import torch
 
+    from eksml_tpu_torch.fsio import atomic_write_json
     from eksml_tpu_torch.tools import bench
 
     out = {}
@@ -3828,6 +4016,10 @@ def roofline_points(kernels, seed: int, observed=None, device="cuda"):
         want = {kernels.fwd.name: 3 * steps, kernels.bwd.name: 2 * steps,
                 kernels.copy.name: 2 * len(LEVEL_STRIDES) * steps}
         assert launches == want, (label, launches, want)
+        if ladder:
+            os.makedirs(ladder, exist_ok=True)
+            atomic_write_json(os.path.join(
+                ladder, f"bench_rung_{label}.json"), rec)
         rec["launches"] = launches
         gap = (None if rec["measured_peak_bytes"] is None else
                rec["measured_peak_bytes"] - rec["predicted_peak_hbm_bytes"])
@@ -3925,8 +4117,12 @@ def phase_roofline(kernels, seed: int, workdir: str, observed=None,
     """The step's roofline on the card (``profiling/predict.py``) through
     the ladder (``tools/bench.py``) at the f32 and bf16 + REMAT training
     points and the ladder's ``1344_b8_remat`` rung, then ``eval_ckpt`` on
-    the lifecycle run's checkpoint (when the lifecycle phase ran)."""
-    out = {"points": roofline_points(kernels, seed, observed, device)}
+    the lifecycle run's checkpoint (when the lifecycle phase ran).  The
+    points' ladder lines are banked in ``<workdir>/ladder`` (``ladder``
+    in the result) for the reports phase."""
+    ladder = os.path.join(workdir, "ladder")
+    out = {"points": roofline_points(kernels, seed, observed, device,
+                                     ladder), "ladder": ladder}
     if life is not None:
         out["eval_ckpt"] = roofline_eval_ckpt(life, seed, workdir, device)
     else:
@@ -4299,8 +4495,9 @@ class AutotuneChildren:
                     proc.stdin.close()      # never released: exits on EOF
                 rc = proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, 9)
-                rc = proc.wait()
+                kill_session(proc)
+                rc = proc.returncode
+            kill_session(proc)
             if rc != 0:
                 bad.append((key, rc))
         assert not bad, f"autotune children exited {bad}"
@@ -4683,14 +4880,7 @@ class ChartPod:
             return f.read()
 
     def kill(self) -> None:
-        import signal
-
-        if self.proc.poll() is None:
-            try:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            self.proc.wait()
+        kill_session(self.proc)
         log(f"[charts] output of {os.path.basename(self.log_path)}:\n"
             + self.text()[-4000:])
 
@@ -4735,6 +4925,7 @@ def run_train_leg(tag: str, argv, env, port: int, logdir: str,
     except BaseException:
         pod.kill()
         raise
+    kill_session(pod.proc)      # what the launcher's ranks left behind
     text = pod.text()
     out["rc"] = rc
     keep = re.compile(r"WARNING|ERROR|Traceback|loaded \d+/|resuming|"
@@ -4881,9 +5072,7 @@ def notebook_leg(kernels, workdir: str, device: str = "cuda") -> dict:
             out[name] = {"detections": count, "launches": launches}
     finally:
         for proc, f in procs.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, 9)
-                proc.wait()
+            kill_session(proc)
             f.close()
     out["wall_s"] = time.perf_counter() - t0
     return out
@@ -5031,6 +5220,276 @@ def phase_charts(kernels, seed: int, workdir: str, device: str = "cuda"):
 
 
 # ---------------------------------------------------------------------
+# reports: the port's run_report, goodput_report and perf_gate on this
+# call's runs
+# ---------------------------------------------------------------------
+
+#: the perf_gate rung counted on the card (SMOKE widths) and gated
+#: against the committed bank the CPU counted (``artifacts/h100/``)
+REPORT_GATE = ("128_b1", "replicated", "float32")
+#: (section, where its artifact lies, the artifact's glob there, words
+#: only the section's pointer (or its failure to read) has)
+REPORT_SECTIONS = (
+    ("Run segments", "logdir", "metrics.jsonl",
+     ("No metrics.jsonl found",)),
+    ("Incident timeline (flight recorder)", "logdir", "events-host*.jsonl",
+     ("No events-host*.jsonl found",)),
+    ("Goodput (whole-run wall-clock ledger)", "logdir",
+     "goodput-host*.jsonl", ("renders the ledger on demand",
+                             "Could not build")),
+    ("Autoscaling (operator decision trail)", "logdir",
+     "autoscale-host*.jsonl", ("No autoscale-host*.jsonl found",)),
+    ("Slow steps (span tracing)", "logdir", "trace-host*.json",
+     ("No trace-host*.json found", "Could not merge",
+      "covered no full step")),
+    ("Modeled cost by component (profile attribution)", "logdir",
+     os.path.join("profile", "attribution.json"),
+     ("No attribution artifact", "Could not parse")),
+    ("Predicted vs measured step time (perf gate)", "artifacts",
+     "bench_rung_*.json", ("no ladder line",
+                           "No measured-vs-predicted calibration pairs")),
+    ("Predicted vs measured step time (perf gate)", "artifacts",
+     "perf_pred_h100_*.json", ("no ladder line",
+                               "No banked `perf_pred_h100_*.json`")),
+    ("Communication (predicted per-collective ledger)", "artifacts",
+     "perf_pred_h100_*.json", ("No banked prediction carries",)),
+    ("Memory (predicted peak HBM, liveness model)", "artifacts",
+     "perf_pred_h100_*.json", ("No banked prediction carries",)),
+    ("Serving (load-tested latency / throughput)", "artifacts",
+     "serve_r*.json", ("No `serve_r<N>.json` artifacts",)),
+)
+DEPLOYMENTS = "Deployments (serving hot-reload / canary)"
+
+
+def report_sections(report: str) -> dict:
+    """{section title: its lines} of a rendered run report."""
+    out = {}
+    for chunk in report.split("\n## ")[1:]:
+        title, _, body = chunk.partition("\n")
+        out[title] = body.rstrip("\n").splitlines()
+    return out
+
+
+def check_report(report: str, logdir: str, artifacts: str) -> list:
+    """The sections of ``report`` whose artifact exists in ``logdir`` or
+    ``artifacts``; each must render from it, not from its pointer."""
+    import glob
+
+    from eksml_tpu_torch.tools import run_report
+
+    secs = report_sections(report)
+    rendered = []
+    for title, where, pattern, pointers in REPORT_SECTIONS:
+        root = logdir if where == "logdir" else artifacts
+        if not glob.glob(os.path.join(root, pattern)):
+            continue
+        text = "\n".join(secs[title])
+        bad = [w for w in pointers if w in text]
+        assert not bad, (logdir, title, bad, text[:600])
+        rendered.append(title)
+    if any(e.get("kind") in run_report._DEPLOY_KINDS
+           for e in run_report.load_events(logdir)):
+        text = "\n".join(secs[DEPLOYMENTS])
+        assert "No serving deployment events" not in text, text[:600]
+        rendered.append(DEPLOYMENTS)
+    return sorted(set(rendered))
+
+
+def report_gate(kernels, art: str, device: str = "cuda") -> dict:
+    """``perf_gate``'s ``REPORT_GATE`` rung counted on ``device`` and
+    gated against the committed CPU bank at the default bound; its
+    record banked in ``art`` (the report's predicted sections read it);
+    the counted FLOPs beside the bank's, by component."""
+    import torch
+
+    from eksml_tpu_torch.fsio import atomic_write_json
+    from eksml_tpu_torch.profiling.predict import load_json
+    from eksml_tpu_torch.tools import perf_gate
+
+    rung, strategy, precision = REPORT_GATE
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    counted = perf_gate.count_rung(rung, precision, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    fresh = perf_gate.predict_rung(rung, strategy, precision,
+                                   device=device, counted=counted)
+    count_s = time.perf_counter() - t0
+    row = perf_gate.gate_one(fresh, perf_gate.DEFAULT_BANK, 10.0, False)
+    bank = load_json(perf_gate.baseline_path(perf_gate.DEFAULT_BANK,
+                                             fresh["key"]))
+    assert bank is not None, f"no committed bank of {fresh['key']}"
+    atomic_write_json(perf_gate.baseline_path(art, fresh["key"]), fresh)
+    comps = sorted(set(fresh["component_costs"]) | set(
+        bank["component_costs"]))
+    differ = {c: [fresh["component_costs"].get(c, {}).get("flops", 0),
+                  bank["component_costs"].get(c, {}).get("flops", 0)]
+              for c in comps
+              if fresh["component_costs"].get(c, {}).get("flops", 0)
+              != bank["component_costs"].get(c, {}).get("flops", 0)}
+    verdict = row.get("verdict") or {}
+    log(f"[reports] perf_gate {fresh['key']} counted on {device} (torch "
+        f"{fresh['torch']}, {fresh['ops']} ops, {count_s:.1f} s): "
+        f"{fresh['totals']['flops']:.0f} FLOPs, predicted "
+        f"{fresh['predicted_step_time_ms']:.4f} ms; the committed bank "
+        f"(counted on {bank['counted_on']}, torch {bank['torch']}, "
+        f"{bank['ops']} ops): {bank['totals']['flops']:.0f} FLOPs, "
+        f"predicted {bank['predicted_step_time_ms']:.4f} ms; "
+        f"components whose FLOPs differ (card, bank): {json.dumps(differ)};"
+        f" gate {row['gate']} at {verdict.get('max_regress_pct')} % "
+        f"(total {verdict.get('total_regress_pct')} %); launches "
+        f"{launches}")
+    assert row["gate"] == "PASS", row.get("error")
+    if device == "cuda":
+        # one counted step: each ROIAlign call of the step on its kernel
+        want = {kernels.fwd.name: 3, kernels.bwd.name: 2,
+                kernels.copy.name: 2 * len(LEVEL_STRIDES)}
+        assert launches == want, (launches, want)
+    return {"launches": launches, "key": fresh["key"],
+            "gate": row["gate"], "flops": fresh["totals"]["flops"],
+            "bank_flops": bank["totals"]["flops"],
+            "predicted_ms": fresh["predicted_step_time_ms"],
+            "bank_predicted_ms": bank["predicted_step_time_ms"],
+            "total_regress_pct": verdict.get("total_regress_pct"),
+            "flops_differ": differ, "torch": fresh["torch"],
+            "bank_torch": bank["torch"], "count_s": count_s}
+
+
+def calibration_rows(section) -> list:
+    """(line, measured ms) of the predicted section's calibration
+    table."""
+    rows = []
+    for ln in section:
+        cells = [c.strip() for c in ln.strip("|").split("|")]
+        if len(cells) == 6 and cells[1].startswith("bench_rung_"):
+            rows.append((cells[1], float(cells[2])))
+    return rows
+
+
+def observe_artifacts(art: str, workdir: str, prediction: dict) -> str:
+    """A directory for the observe run's report: the ladder lines of
+    ``art`` and the run's own first-step roofline (its trainer's
+    ``last_prediction``) as its only ``perf_pred``, so that the report's
+    effective MFU is of the program the run ran."""
+    import glob
+
+    from eksml_tpu_torch.fsio import atomic_write_json
+
+    out = os.path.join(workdir, "observe-artifacts")
+    os.makedirs(out, exist_ok=True)
+    for path in glob.glob(os.path.join(art, "bench_rung_*.json")):
+        shutil.copy(path, out)
+    key = f"observe_{prediction['precision']}"
+    atomic_write_json(os.path.join(
+        out, f"perf_pred_{prediction['target']}_{key}.json"),
+        dict(prediction, key=key))
+    return out
+
+
+def phase_reports(kernels, workdir: str, observed=None, operator_dirs=(),
+                  fleet_dir=None, ladder=None, device: str = "cuda"):
+    """The port's offline layer on this call's runs: ``perf_gate`` on the
+    card (``report_gate``), then ``run_report`` over the observe run (as
+    a user runs it: ``python -m eksml_tpu_torch.tools.run_report``), the
+    operator's logdirs and the fleet's.  Each report's ``--artifacts``
+    holds the roofline phase's ladder lines; the observe run's holds its
+    own first-step roofline beside them (``observe_artifacts``), the
+    others the card's count of the gate's SMOKE ``128_b1`` rung, whose
+    effective MFU line is not their program's and is quoted nowhere.
+    Every section whose artifact exists renders from it, the observe
+    report's goodput ratio is ``build_ledger``'s, its calibration
+    table's measured steps are the ladder lines'; the roofline's
+    calibration on the card and the observe run's effective MFU."""
+    from eksml_tpu_torch.profiling.predict import load_json
+    from eksml_tpu_torch.telemetry.goodput import build_ledger
+    from eksml_tpu_torch.tools import goodput_report, perf_gate, run_report
+
+    art = ladder or os.path.join(workdir, "ladder")
+    os.makedirs(art, exist_ok=True)
+    out = report_gate(kernels, art, device)
+    cal = perf_gate.calibration(art)
+    out["calibration"] = cal
+    for pt in cal["points"]:
+        log(f"[reports] calibration {pt['measured_source']} ({pt['rung']}):"
+            f" measured {pt['measured_ms']:.2f} ms / predicted "
+            f"{pt['predicted_ms']:.2f} ms = scale {pt['scale']}, "
+            f"deviation {pt['deviation_pct']} %")
+    log(f"[reports] calibration of the H100 roofline on the card's steps: "
+        f"{cal['n_points']} line(s), common scale {cal['scale']}, "
+        f"model_error_pct {cal['model_error_pct']}"
+        + (f" ({cal['note']})" if cal.get("note") else ""))
+    out["reports"] = {}
+    dirs = ([("observe", observed["run"])] if observed else []) + [
+        (f"operator ({os.path.basename(d)})", d) for d in operator_dirs] + (
+        [("fleet", fleet_dir)] if fleet_dir else [])
+    for tag, logdir in dirs:
+        t0 = time.perf_counter()
+        where = art
+        if tag == "observe":
+            where = observe_artifacts(art, workdir, observed["prediction"])
+            path = os.path.join(workdir, "report-observe.md")
+            proc = subprocess.run(
+                [sys.executable, "-m", "eksml_tpu_torch.tools.run_report",
+                 logdir, "--artifacts", where, "--out", path],
+                capture_output=True, text=True, timeout=300,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            with open(path) as f:
+                report = f.read()
+        else:
+            report = run_report.render_report(logdir, artifacts_dir=art)
+        wall = time.perf_counter() - t0
+        rendered = check_report(report, logdir, where)
+        out["reports"][tag] = {"sections": rendered, "wall_s": wall,
+                               "lines": report.count("\n")}
+        log(f"[reports] run_report {tag} ({wall:.1f} s, "
+            f"{report.count(chr(10))} lines): rendered from their "
+            f"artifacts: {rendered}")
+        if tag != "observe":
+            continue
+        secs = report_sections(report)
+        ledger = build_ledger(logdir)
+        goodput = "\n".join(secs["Goodput (whole-run wall-clock ledger)"])
+        got = goodput.split("goodput ratio **", 1)[1].split("**", 1)[0]
+        assert float(got) == ledger["goodput_ratio"], (got, ledger)
+        rows = calibration_rows(
+            secs["Predicted vs measured step time (perf gate)"])
+        want = [(pt["measured_source"], load_json(os.path.join(
+            art, pt["measured_source"]))["step_time_ms"])
+            for pt in cal["points"]]
+        assert rows == want, (rows, want)
+        mfu = goodput_report.effective_mfu(ledger["goodput_ratio"], where)
+        pred = observed["prediction"]
+        assert mfu.get("prediction") == (
+            f"perf_pred_{pred['target']}_observe_{pred['precision']}"
+            ".json"), mfu
+        assert f"(`{mfu['prediction']}`" in goodput, goodput[-600:]
+        out["observe_goodput_ratio"] = ledger["goodput_ratio"]
+        out["observe_prediction"] = {
+            "predicted_step_time_ms": pred["predicted_step_time_ms"],
+            "flops": pred["totals"]["flops"], "target": pred["target"],
+            "precision": pred["precision"]}
+        out["effective_mfu"] = mfu
+        log(f"[reports] observe run: the report's goodput ratio {got} is "
+            f"build_ledger's; its calibration table's measured steps are "
+            f"the {len(rows)} ladder line(s)'; effective MFU over the "
+            f"run's own first-step roofline ({pred['precision']}, "
+            f"{pred['totals']['flops']:.6g} FLOPs, predicted "
+            f"{pred['predicted_step_time_ms']:.2f} ms): " + json.dumps(mfu))
+    return out
+
+
+def operator_dirs(workdir: str) -> list:
+    """The operator phase's logdirs (NCCL ranks, or gloo ranks on the CPU
+    and the card's world-1 trainer)."""
+    return [os.path.join(workdir, name)
+            for name in ("operator", "operator-cpu", "operator-card")
+            if os.path.isdir(os.path.join(workdir, name))]
+
+
+# ---------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -5061,6 +5520,16 @@ def main(argv=None) -> int:
         return eval_rank(args.eval_rank)
     if args.autotune_child:
         return autotune_child(args.autotune_child)
+    tag = adopt_orphans()
+    try:
+        return drive(args, phases)
+    finally:
+        stop_leftovers(tag)
+
+
+def drive(args, phases) -> int:
+    """Every phase of ``phases``, then the result lines."""
+    import torch
     from eksml_tpu_torch.ops.roi_align import KERNELS
 
     log(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -5079,7 +5548,7 @@ def main(argv=None) -> int:
     engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
     bf16 = serve16 = cascade = variants = observed = charts = None
-    roofline = autotune = None
+    roofline = autotune = reports = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -5166,6 +5635,12 @@ def main(argv=None) -> int:
         if "charts" in phases:
             charts = timed(walls, "charts", phase_charts, KERNELS, args.seed,
                            workdir)
+        if "reports" in phases:
+            reports = timed(
+                walls, "reports", phase_reports, KERNELS, workdir, observed,
+                operator_dirs(workdir),
+                life["run"] if fleet is not None else None,
+                roofline["ladder"] if roofline else None)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s; "
@@ -5223,7 +5698,10 @@ def main(argv=None) -> int:
                     "autotune": (autotune["launches"][k.name] if autotune
                                  else None),
                     "charts": (charts["launches"][k.name] if charts
-                               else None)},
+                               else None),
+                    # perf_gate's SMOKE step counted on the card
+                    "reports": (reports["launches"][k.name] if reports
+                                else None)},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -5325,6 +5803,9 @@ def main(argv=None) -> int:
     if charts is not None:
         log(f"[charts] on {cards}: " + json.dumps(
             {k: v for k, v in charts.items() if k != "launches"}))
+    if reports is not None:
+        log(f"[reports] on {cards}: " + json.dumps(
+            {k: v for k, v in reports.items() if k != "launches"}))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

@@ -14,5 +14,24 @@
 - :mod:`eval_ckpt` — a training checkpoint's COCO AP from the command
   line;
 - :mod:`run_notebook` — a notebook's code cells run in order as a script
-  (the viz notebooks where Jupyter's kernel machinery is absent).
+  (the viz notebooks where Jupyter's kernel machinery is absent);
+- :mod:`run_report` — a markdown post-mortem of a training logdir
+  (segments, incidents, elastic restores, goodput and effective MFU, the
+  operator's and the fleet's trails, slow steps, cost by component, the
+  roofline's predictions and calibration, collectives, memory, serving
+  rounds);
+- :mod:`goodput_report` — a logdir's whole-run goodput ledger and its
+  effective MFU;
+- :mod:`trace_summary` — a ``torch.profiler`` capture's device time by
+  op family and component, and a run's host span traces merged on one
+  timeline;
+- :mod:`perf_gate` — the hermetic gate: one SMOKE-width step per rung
+  counted on the CPU (or the card), priced on the H100 roofline,
+  compared with the bank in ``artifacts/h100/``;
+- :mod:`bench_gate` — the ladder's fresh lines against banked ones of
+  the same rung, precision and card.
+
+The reports and gates read ``--artifacts`` / ``--bank``, by default the
+logdir or the port's own bank, never the TPU reference's ``artifacts/``
+files.
 """

@@ -109,6 +109,26 @@ def rung_config(base_cfg, rung: Dict[str, Any], args):
     return finalize_configs(True, cfg)
 
 
+def seeded_model(cfg, device, seed: int):
+    """The model of ``cfg`` on ``device`` in its storage dtype, with the
+    weights ``init_params`` draws from ``seed``.  The caller's global RNG
+    is left as it was."""
+    import torch
+
+    from eksml_tpu_torch.convert import init_params
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.train import cast_for_storage
+
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(seed)
+        model = MaskRCNN.from_config(cfg)
+    model = model.to(device)
+    cast_for_storage(model, cfg.TRAIN.PARAM_DTYPE)
+    model.load_state_dict(init_params(
+        cfg, torch.Generator().manual_seed(seed)))
+    return model
+
+
 def _sync(device) -> None:
     import torch
 
@@ -130,15 +150,12 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
     import torch
 
     from eksml_tpu_torch.config import config as global_cfg
-    from eksml_tpu_torch.convert import init_params
     from eksml_tpu_torch.data.loader import (DetectionLoader,
                                              SyntheticDataset,
                                              batch_tensors)
     from eksml_tpu_torch.device import resolve_device
-    from eksml_tpu_torch.models import MaskRCNN
     from eksml_tpu_torch.profiling import predict as predict_mod
-    from eksml_tpu_torch.train import (cast_for_storage, make_optimizer,
-                                       make_train_step)
+    from eksml_tpu_torch.train import make_optimizer, make_train_step
     from eksml_tpu_torch.utils.compile_cache import choose_cudnn_algorithms
 
     device = resolve_device(device or args.device)
@@ -159,11 +176,7 @@ def run_rung(rung: Dict[str, Any], args, base_cfg=None,
     batch = {k: v.to(device) for k, v in batch_tensors(host).items()}
     # the canvas the config gave the batch (--config may move it)
     h, w = (int(d) for d in batch["images"].shape[1:3])
-    torch.manual_seed(args.seed)
-    model = MaskRCNN.from_config(cfg).to(device)
-    cast_for_storage(model, cfg.TRAIN.PARAM_DTYPE)
-    model.load_state_dict(init_params(
-        cfg, torch.Generator().manual_seed(args.seed)))
+    model = seeded_model(cfg, device, args.seed)
     model.train()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

@@ -3,7 +3,8 @@ on the CPU at SMOKE widths: the rungs keep the reference's names and
 geometry (``bench.py`` at the repository root), one rung prints every
 field of its JSON line, ``mfu`` is the counted FLOPs without REMAT's
 recompute per second over the named peak, an unknown rung raises, and
-the default device is ``cuda`` (raising without a card)."""
+the default device of the ladder, ``eval_ckpt`` and ``perf_gate`` is
+``cuda`` (raising without a card)."""
 
 import json
 import os
@@ -71,15 +72,24 @@ def test_one_rung_on_the_cpu_prints_every_field(tmp_path, capsys):
     assert rec["measured_peak_bytes"] is None and rec["card"] is None
 
 
-@pytest.mark.parametrize("module", ["bench", "eval_ckpt"])
+@pytest.mark.parametrize("module", ["bench", "eval_ckpt", "perf_gate",
+                                    "perf_gate --serve"])
 def test_tools_default_to_cuda_and_raise_without_it(module, tmp_path,
                                                     monkeypatch):
-    from eksml_tpu_torch.tools import eval_ckpt
+    from eksml_tpu_torch.tools import eval_ckpt, perf_gate
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    main, args = ((bench.main, ["--rungs", "512_b1"]) if module == "bench"
-                  else (eval_ckpt.main, ["--logdir", str(tmp_path),
-                                         "--data", str(tmp_path)]))
+    main, args = {
+        "bench": (bench.main, ["--rungs", "512_b1"]),
+        "eval_ckpt": (eval_ckpt.main, ["--logdir", str(tmp_path),
+                                       "--data", str(tmp_path)]),
+        "perf_gate": (perf_gate.main, ["--rungs", "128_b1", "--strategies",
+                                       "replicated", "--bank",
+                                       str(tmp_path)]),
+        "perf_gate --serve": (perf_gate.main, [
+            "--serve", "--serve-rungs", "serve_128x128_b1", "--bank",
+            str(tmp_path)]),
+    }[module]
     with pytest.raises(RuntimeError,
                        match=r"torch.cuda.is_available\(\) is False"):
         main(args)

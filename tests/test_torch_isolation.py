@@ -14,7 +14,11 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eksml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eksml_tpu",
+             # the reference's tools, as a package and as the bare
+             # module names its script-mode fallbacks import: the port's
+             # reports and gates keep their own copies
+             "tools", "trace_summary", "goodput_report", "perf_gate")
 
 
 def _sources():
@@ -58,6 +62,17 @@ def test_the_check_catches_what_it_must():
     assert forbidden_imports(src) == ["jax.numpy", "flax", "optax",
                                       "eksml_tpu.config", "eksml_tpu",
                                       "jaxlib"]
+
+
+def test_the_check_catches_the_reference_tools():
+    src = ("from tools import trace_summary\nimport tools.perf_gate\n"
+           "import goodput_report\nfrom perf_gate import gate_one\n"
+           "from eksml_tpu_torch.tools import perf_gate\n"
+           "from eksml_tpu_torch.tools.run_report import render_report\n"
+           "def f():\n    import trace_summary\n")
+    assert forbidden_imports(src) == ["tools", "tools.perf_gate",
+                                      "goodput_report", "perf_gate",
+                                      "trace_summary"]
 
 
 def test_host_library_loaders_build_the_ports_own_sources():
