@@ -207,6 +207,7 @@ import contextlib
 import copy
 import json
 import logging
+import math
 import os
 import shutil
 import subprocess
@@ -2356,15 +2357,25 @@ def logged_losses(text: str):
         r"step (\d+)/\d+ loss=([-+.\deE]+|nan|inf)", text)}
 
 
+#: the dist phase's plans at world 1, with the items each needs there
+DIST_STRATEGIES = (("replicated", ()), ("fsdp", ()),
+                   ("tensor", ("TRAIN.SHARDING.MODEL_AXIS_SIZE=1",)),
+                   ("2d", ("TRAIN.SHARDING.MODEL_AXIS_SIZE=1",
+                           "TRAIN.SHARDING.FSDP_AXIS_SIZE=1")))
+
+
 def phase_dist(cfg, kernels, seed: int, train, workdir: str,
                device: str = "cuda"):
     """A world-size-1 NCCL group in this process: ``TRAIN_STEPS`` steps
-    of ``Trainer.fit`` under ``replicated`` (DDP) and under ``fsdp``
-    (FSDP2), each from the train phase's seed-0 weights and batches, held
-    to the train phase's losses and launches; the replica sync check;
-    the FSDP2 checkpoint gathered, then restored bitwise by a Trainer
-    without a group.  ``device="cpu"`` (a gloo group) rehearses the
-    phase on the CPU."""
+    of ``Trainer.fit`` under each of ``DIST_STRATEGIES``: ``replicated``
+    (DDP), ``fsdp`` (FSDP2), ``tensor`` (model 1) and ``2d`` (fsdp 1 x
+    model 1) (the partition rules' DTensors), each from the train phase's
+    seed-0 weights and batches, held to the train phase's losses and to
+    3 forward, 2 backward and 8 copy launches per step; the replica sync
+    check; the FSDP2 checkpoint gathered, then restored bitwise by a
+    Trainer without a group.  One process, one thread: cuDNN's algorithm
+    cache stays warm from strategy to strategy.  ``device="cpu"`` (a gloo
+    group) rehearses the phase on the CPU."""
     import torch
     import torch.distributed as dist
 
@@ -2393,10 +2404,12 @@ def phase_dist(cfg, kernels, seed: int, train, workdir: str,
         f"set-up) {out['warm_ms']:.1f} ms")
     live = None
     try:
-        for strategy in ("replicated", "fsdp"):
+        for strategy, extra in DIST_STRATEGIES:
+            t_strategy = time.perf_counter()
             scfg = cfg.clone()
             scfg.freeze(False)
-            scfg.update_args([f"TRAIN.SHARDING.STRATEGY={strategy}"])
+            scfg.update_args([f"TRAIN.SHARDING.STRATEGY={strategy}",
+                              *extra])
             scfg.freeze()
             logdir = os.path.join(workdir, f"dist_{strategy}")
             t0 = time.perf_counter()
@@ -2449,7 +2462,7 @@ def phase_dist(cfg, kernels, seed: int, train, workdir: str,
                 assert assert_replicas_in_sync(trainer.model.state_dict(),
                                                trainer.generator.get_state())
                 log("[dist] assert_replicas_in_sync: in sync")
-            else:
+            elif strategy == "fsdp":
                 trainer.ckpt.wait()
                 assert trainer.ckpt.latest_step() == TRAIN_STEPS
                 t0 = time.perf_counter()
@@ -2460,12 +2473,20 @@ def phase_dist(cfg, kernels, seed: int, train, workdir: str,
                 del state
                 log(f"[dist] FSDP2 full-state gather of step {TRAIN_STEPS} "
                     f"for the checkpoint: {rec['gather_ms']:.1f} ms")
+            else:       # the DTensor plans commit their gathered state too
+                trainer.ckpt.wait()
+                assert trainer.ckpt.latest_step() == TRAIN_STEPS
             out[strategy] = rec
             trainer.close()
             del trainer
             torch.cuda.empty_cache()
+            rec["wall_s"] = time.perf_counter() - t_strategy
+            log(f"[dist] {strategy}: {rec['wall_s']:.1f} s wall (Trainer, "
+                f"{TRAIN_STEPS} steps, checks)")
     finally:
         dist.destroy_process_group()
+    log("[dist] wall by strategy: " + json.dumps(
+        {k: round(out[k]["wall_s"], 1) for k, _ in DIST_STRATEGIES}))
 
     # the FSDP2 step, restored by a Trainer without a group
     plain = Trainer(cfg, logdir=os.path.join(workdir, "dist_fsdp"),
@@ -2494,43 +2515,127 @@ def phase_dist(cfg, kernels, seed: int, train, workdir: str,
     return out
 
 
-def phase_ranks(workdir: str):
-    """Where two or more devices exist, ``python -m eksml_tpu_torch.train
-    --synthetic`` as 2 ranks under ``fsdp`` (3 steps at the default
-    config): both ranks must log the same losses and one checkpoint
-    commit; with one device, one line saying so."""
-    import torch
-
-    n = torch.cuda.device_count()
-    if n < 2:
-        log(f"[ranks] the 2-rank run of python -m eksml_tpu_torch.train was "
-            f"not run: this machine shows {n} CUDA device(s) and the run "
-            "needs one per rank")
-        return None
-    run = os.path.join(workdir, "two_ranks")
+def _entry_run(workdir: str, name: str, nranks: int, items) -> dict:
+    """``python -m eksml_tpu_torch.train --synthetic`` as ``nranks``
+    ranks, 3 steps with ``items``: every rank must exit 0, log the same
+    losses at steps 1-3 and see one checkpoint commit (step 3)."""
+    run = os.path.join(workdir, name)
     os.makedirs(run)
     t0 = time.perf_counter()
-    res = entry_ranks(2, [
+    res = entry_ranks(nranks, [
         "--synthetic", "--logdir", run, "--total-steps", "3",
-        "--config", "TRAIN.SHARDING.STRATEGY=fsdp", "TRAIN.NUM_CHIPS=2",
+        "--config", *items, f"TRAIN.NUM_CHIPS={nranks}",
         f"TRAIN.BATCH_SIZE_PER_CHIP={BATCH}", "TRAIN.STEPS_PER_EPOCH=3",
         "TRAIN.CHECKPOINT_PERIOD=1", "TRAIN.LOG_PERIOD=1"], run,
         timeout=600)
     wall = time.perf_counter() - t0
     for r, (code, text) in enumerate(res):
-        assert code == 0, f"rank {r} exited {code}:\n{text[-4000:]}"
+        assert code == 0, f"{name} rank {r} exited {code}:\n{text[-4000:]}"
     losses = [logged_losses(text) for _, text in res]
-    steps = sorted(int(name) for name in os.listdir(
-        os.path.join(run, "checkpoints")) if name.isdigit())
-    log(f"[ranks] 2 ranks of python -m eksml_tpu_torch.train under fsdp "
-        f"on {n} device(s), 3 steps in {wall:.1f} s (process start, NCCL, "
-        f"cuDNN autotune included): losses rank 0 {losses[0]}, rank 1 "
-        f"{losses[1]}; checkpoints {steps}")
-    assert losses[0] == losses[1] and sorted(losses[0]) == [1, 2, 3]
+    steps = sorted(int(n) for n in os.listdir(
+        os.path.join(run, "checkpoints")) if n.isdigit())
+    log(f"[ranks] {nranks} ranks of python -m eksml_tpu_torch.train with "
+        f"{' '.join(items)}, 3 steps in {wall:.1f} s (process start, NCCL, "
+        f"cuDNN autotune included): losses "
+        + "; ".join(f"rank {r} {got}" for r, got in enumerate(losses))
+        + f"; checkpoints {steps}")
+    assert all(got == losses[0] for got in losses) and \
+        sorted(losses[0]) == [1, 2, 3], losses
+    assert all(math.isfinite(v) for v in losses[0].values()), losses[0]
     assert steps == [3], steps
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    rows = {r["step"]: r for r in rows if "grad_norm" in r}
+    assert sorted(rows) == [1, 2, 3], rows
+    return {"run": run, "wall_s": wall, "losses": losses[0],
+            "total_loss": {k: r["total_loss"] for k, r in rows.items()},
+            "grad_norm": {k: r["grad_norm"] for k, r in rows.items()}}
 
-    evaluated = ranks_eval(run, 3, train_config())
-    return {"wall_s": wall, "losses": losses[0], **evaluated}
+
+#: step 1 of two plans on one global batch: the same weights, so the
+#: same loss, and the mean gradient's norm whatever the plan reduces
+#: (a gradient scaled wrongly on any parameter moves it by more)
+RANKS_STEP1_TOL = 1e-3
+
+
+def _hold_to(ref: dict, got: dict, what: str) -> dict:
+    """``got``'s entry-point run against ``ref``'s on the same global
+    batch (``metrics.jsonl``): step 1's loss and ``grad_norm`` to
+    ``RANKS_STEP1_TOL``, the losses of steps 2-3 to ``DIST_LOSS_TOL``
+    (relative)."""
+    def rel(key, step):
+        return abs(got[key][step] - ref[key][step]) / max(
+            abs(ref[key][step]), 1e-30)
+
+    step1 = max(rel("total_loss", 1), rel("grad_norm", 1))
+    later = max(rel("total_loss", k) for k in (2, 3))
+    log(f"[ranks] {what}: step 1 largest relative difference of the loss "
+        f"and grad_norm {step1:.3e} (tolerance {RANKS_STEP1_TOL}); steps "
+        f"2-3 losses {later:.3e} (tolerance {DIST_LOSS_TOL}); total_loss "
+        f"{got['total_loss']} against {ref['total_loss']}, grad_norm "
+        f"{got['grad_norm']} against {ref['grad_norm']}")
+    assert step1 <= RANKS_STEP1_TOL and later <= DIST_LOSS_TOL, what
+    return {"step1_rel_diff": step1, "loss_rel_diff": later}
+
+
+#: the 4-rank runs' canvas: the model at full width, a smaller image (its
+#: cuDNN autotune is most of a run's start at 1344)
+FOUR_RANKS_ITEMS = ("PREPROC.MAX_SIZE=512",
+                    "PREPROC.TRAIN_SHORT_EDGE_SIZE=(512,512)")
+
+
+def ranks_2d(workdir: str) -> dict:
+    """``2d`` (fsdp 2 x model 2) as 4 ranks of the entry point, held to
+    ``fsdp`` as 4 ranks on the same global batch (``_hold_to``), both at
+    ``FOUR_RANKS_ITEMS``' canvas."""
+    fsdp4 = _entry_run(workdir, "four_ranks_fsdp", 4,
+                       ["TRAIN.SHARDING.STRATEGY=fsdp", *FOUR_RANKS_ITEMS])
+    twod = _entry_run(workdir, "four_ranks_2d", 4, [
+        "TRAIN.SHARDING.STRATEGY=2d", "TRAIN.SHARDING.MODEL_AXIS_SIZE=2",
+        "TRAIN.SHARDING.FSDP_AXIS_SIZE=2", *FOUR_RANKS_ITEMS])
+    held = _hold_to(fsdp4, twod, "2d against fsdp, 4 ranks each")
+    return {"twod_wall_s": twod["wall_s"], "twod_losses": twod["losses"],
+            "fsdp4_wall_s": fsdp4["wall_s"],
+            "twod_loss_rel_diff": held["loss_rel_diff"],
+            "twod_step1_rel_diff": held["step1_rel_diff"]}
+
+
+def phase_ranks(workdir: str):
+    """Where two or more devices exist, ``python -m eksml_tpu_torch.train
+    --synthetic`` as 2 ranks under ``fsdp`` and under ``tensor`` (model
+    2), 3 steps at the default config each: every rank logs the same
+    losses and one checkpoint commit, and ``tensor`` is held to ``fsdp``
+    on the same global batch (``_hold_to``: whole-weight compute, the
+    mean gradient); then the fsdp run's checkpoint evaluated as 2 ranks.
+    Where four or more exist, ``2d`` (fsdp 2 x model 2) as 4 ranks, held
+    to ``fsdp`` as 4 ranks on the same global batch (``ranks_2d``, on a
+    512² canvas).  Otherwise one line says which run was not made and
+    why."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[ranks] the 2-rank runs of python -m eksml_tpu_torch.train "
+            f"(fsdp, tensor) and the 4-rank 2d run were not run: this "
+            f"machine shows {n} CUDA device(s) and each run needs one per "
+            "rank")
+        return None
+    fsdp = _entry_run(workdir, "two_ranks", 2,
+                      ["TRAIN.SHARDING.STRATEGY=fsdp"])
+    tensor = _entry_run(workdir, "two_ranks_tensor", 2, [
+        "TRAIN.SHARDING.STRATEGY=tensor", "TRAIN.SHARDING.MODEL_AXIS_SIZE=2"])
+    held = _hold_to(fsdp, tensor, "tensor against fsdp, 2 ranks each")
+    out = {"wall_s": fsdp["wall_s"], "losses": fsdp["losses"],
+           "tensor_wall_s": tensor["wall_s"],
+           "tensor_loss_rel_diff": held["loss_rel_diff"],
+           "tensor_step1_rel_diff": held["step1_rel_diff"]}
+    if n >= 4:
+        out.update(ranks_2d(workdir))
+    else:
+        log(f"[ranks] the 4-rank 2d run was not run: this machine shows {n} "
+            "CUDA device(s) and it needs one per rank")
+    evaluated = ranks_eval(fsdp["run"], 3, train_config())
+    return {**out, **evaluated}
 
 
 def ranks_eval(run: str, step: int, cfg):
@@ -3445,8 +3550,9 @@ def phase_variants_reference(seed: int, img: int = 256):
 OBSERVE_STEPS = 20
 OBSERVE_STALE_S = 6.0
 OBSERVE_STALL_S = 10.0
-#: one-step captures the executor takes in one process
-OBSERVE_CAPTURES = 20
+#: one-step captures the executor takes in one process (20 took 48 s of
+#: the phase; 5 keep the script inside its time limit on a slow host)
+OBSERVE_CAPTURES = 5
 #: the goodput bank's buckets against the run's wall time (run_start to
 #: the entry point's return: the final bank row is written before the
 #: last checkpoint's background write is drained and the trainer closed)
@@ -4224,6 +4330,11 @@ AUTOTUNE_EXTRA_SETTINGS = {
 #: measured run failed it at each such point (f32 under cuDNN's
 #: heuristics: 25-31 % slower steps in seven runs, PERF.md section 6)
 AUTOTUNE_SETTLED = (("float32", "heuristics"),)
+#: the points that measure ``autotune_limit_2``: the two training points
+#: at batch 4.  The chart and serving points leave it out to keep every
+#: phase inside the script's time limit (a cut of this study's breadth;
+#: their earlier readings are in PERF.md section 6)
+AUTOTUNE_LIMIT_2_POINTS = ("train_f32_b4", "train_bf16_remat_b4")
 #: the points whose verdict every measured run gave alike (PERF.md
 #: section 6): there the rule must choose the policy's setting, where
 #: the point's full autotune ran in a fresh process (a reading late in
@@ -4305,7 +4416,9 @@ def autotune_settings(spec) -> tuple:
     from eksml_tpu_torch.utils.compile_cache import SETTINGS
 
     return tuple(s for s in (*SETTINGS, *AUTOTUNE_EXTRA_SETTINGS)
-                 if (spec["precision"], s) not in AUTOTUNE_SETTLED)
+                 if (spec["precision"], s) not in AUTOTUNE_SETTLED
+                 and (s != "autotune_limit_2"
+                      or spec["label"] in AUTOTUNE_LIMIT_2_POINTS))
 
 
 def autotune_child(spec_json: str) -> int:
@@ -5673,6 +5786,10 @@ def drive(args, phases) -> int:
                     "fleet": fleet["launches"][k.name] if fleet else None,
                     "dist": (dist_out["launches"][k.name] if dist_out
                              else None),
+                    "dist_by_strategy": (
+                        {s: c[k.name] for s, c in
+                         dist_out["launches_by_strategy"].items()}
+                        if dist_out else None),
                     "eval": (evaluated["launches"][k.name] if evaluated
                              else None),
                     "eval_reference_train_step": (

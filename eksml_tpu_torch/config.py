@@ -449,8 +449,6 @@ RESILIENCE_AUTOSCALE_DEFAULTS = dict(
 # Sharding strategies TRAIN.SHARDING.STRATEGY may name (the JAX
 # package's parallel/sharding.py STRATEGIES).
 STRATEGIES = ("replicated", "fsdp", "tensor", "2d")
-#: where the strategies the port leaves out ("tensor", "2d") are planned
-SHARDING_ITEM = "ROADMAP.md Queue 1, item 4 (multi-GPU)"
 
 SERVE_DEFAULTS = dict(
     PORT=8081,

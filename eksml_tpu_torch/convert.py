@@ -14,7 +14,11 @@ port's ``state_dict``; module names match, so only layouts change:
 ``flax_leaves`` is the inverse view: the port's tensors under their
 Flax names and layouts, in the order ``jax.tree.leaves`` visits the
 Flax tree (keys sorted at every level) — what the replica fingerprint
-(``parallel/collectives.py``) walks.
+(``parallel/collectives.py``) walks.  ``kernel_layout`` is the one
+statement of these layouts that both directions use; ``flax_path`` and
+``flax_dims`` give a tensor's ``/``-joined Flax path and which Flax dim
+each of its dims is, for the partition rules
+(``parallel/sharding.py``), which match and place in Flax terms.
 
 ``init_params`` is the port's own seeded init, following Flax's
 defaults: lecun-normal kernels (truncated normal, variance 1/fan_in),
@@ -45,22 +49,48 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def kernel_layout(name: str, ndim: int) -> Tuple[Tuple[int, ...], bool]:
+    """``(perm, flipped)`` of the port's tensor ``name`` (its Flax leaf
+    ``<base>.kernel`` when ``name`` is ``<base>.weight``): the port's
+    tensor is the Flax array with its spatial dims flipped when
+    ``flipped``, then ``transpose(perm)``, so the port's dim ``i`` is the
+    Flax dim ``perm[i]``.  Conv HWIO → OIHW, dense ``(in, out)`` →
+    ``(out, in)``, the mask head's transposed conv HWIO → IOHW flipped
+    (its output features are the port's dim 1); every other leaf keeps
+    its layout."""
+    if name.endswith(".weight"):
+        if ndim == 2:
+            return (1, 0), False
+        if name.endswith("maskrcnn.deconv.weight"):
+            return (2, 3, 0, 1), True
+        return (3, 2, 0, 1), False
+    return tuple(range(ndim)), False
+
+
+def flax_path(name: str) -> str:
+    """The port's tensor name → its ``/``-joined Flax leaf path
+    (``fpn.lateral_2.weight`` → ``fpn/lateral_2/kernel``)."""
+    if name.endswith(".weight"):
+        name = name[:-len(".weight")] + ".kernel"
+    return name.replace(".", "/")
+
+
+def flax_dims(name: str, ndim: int) -> Tuple[int, ...]:
+    """The Flax dim that each dim of the port's tensor ``name`` is."""
+    return kernel_layout(name, ndim)[0]
+
+
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``MaskRCNN`` params → the port's ``state_dict`` (float32)."""
     sd = {}
     for name, v in _flatten(params).items():
         v = np.asarray(v, np.float32)
         if name.endswith(".kernel"):
-            base = name[:-len(".kernel")]
-            if v.ndim == 2:
-                w = v.T
-            elif base.endswith("maskrcnn.deconv"):
-                w = v[::-1, ::-1].transpose(2, 3, 0, 1)
-            else:
-                w = v.transpose(3, 2, 0, 1)
-            sd[base + ".weight"] = torch.from_numpy(np.array(w, np.float32))
-        else:
-            sd[name] = torch.from_numpy(np.array(v, np.float32))
+            name = name[:-len(".kernel")] + ".weight"
+        perm, flipped = kernel_layout(name, v.ndim)
+        if flipped:
+            v = v[::-1, ::-1]
+        sd[name] = torch.from_numpy(np.array(v.transpose(perm), np.float32))
     return sd
 
 
@@ -71,17 +101,14 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor]
     tensors' device)."""
     out = []
     for name, t in state_dict.items():
+        perm, flipped = kernel_layout(name, t.dim())
+        v = (t if perm == tuple(range(t.dim()))
+             else t.permute(*np.argsort(perm).tolist()))
+        if flipped:
+            v = v.flip(0, 1)
         if name.endswith(".weight"):
-            base = name[:-len(".weight")]
-            if t.dim() == 2:
-                v = t.t()
-            elif base.endswith("maskrcnn.deconv"):
-                v = t.permute(2, 3, 0, 1).flip(0, 1)
-            else:
-                v = t.permute(2, 3, 1, 0)
-            out.append((base + ".kernel", v))
-        else:
-            out.append((name, t))
+            name = name[:-len(".weight")] + ".kernel"
+        out.append((name, v))
     return sorted(out, key=lambda kv: kv[0].split("."))
 
 

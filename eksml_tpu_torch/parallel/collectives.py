@@ -86,8 +86,13 @@ def assert_replicas_in_sync(state_dict: Mapping[str, torch.Tensor],
     given, the same sampling-generator state): all-gather each rank's
     fingerprint and compare the spread — the silent divergence the
     reference's Horovod stack could not see.  Returns True; raises
-    ``AssertionError`` naming what diverged.  Replicated state only (the
-    trainer disables the check under ``fsdp``, as the reference)."""
+    ``AssertionError`` naming what diverged.  A sharded tensor (a
+    DTensor) is fingerprinted whole, gathered on every rank in one order,
+    so two ranks holding different shards of it never read as diverged
+    (the trainer still runs the check under ``replicated`` only, as the
+    reference)."""
+    state_dict = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                  for k, v in state_dict.items()}
     fp = param_fingerprint(state_dict, generator_state)
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return True

@@ -114,3 +114,13 @@ def build_mesh(mesh_shape: Sequence[int] = (),
     shape, axes = mesh_shape_for(mesh_shape, axis_names,
                                  dist.get_world_size(), num_slices)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def axis_groups(mesh, axes: Sequence[str]) -> tuple:
+    """The process groups of ``mesh``'s ``axes`` whose size is above 1,
+    in mesh order: a reduction over each in turn sums over the sub-mesh
+    they span (``model`` alone under ``tensor``, ``fsdp`` and ``model``
+    together under ``2d``)."""
+    names = tuple(mesh.mesh_dim_names)
+    return tuple(mesh.get_group(a) for a in names
+                 if a in axes and mesh.size(names.index(a)) > 1)

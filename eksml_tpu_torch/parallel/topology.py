@@ -102,13 +102,21 @@ def compatible(saved: Any, current: Any) -> bool:
 
 
 def describe(topo: Any) -> str:
-    """One-line descriptor for logs/events: ``mesh [1, 1] over
-    ['data', 'model'], replicated, 1 slice(s), 1 device(s) (NVIDIA H100
-    80GB HBM3), 1 proc(s)``."""
+    """One-line descriptor for logs/events: ``mesh [1, 2, 2] over
+    ['data', 'fsdp', 'model'], 2d(2x2), 1 slice(s), 4 device(s) (NVIDIA
+    H100 80GB HBM3), 4 proc(s)``; the strategy as the reference writes
+    it: ``fsdp(f)``, ``tensor(m)``, ``2d(fxm)``."""
     t = normalize(topo)
     if t is None:
         return "(unknown topology)"
-    return (f"mesh {t['mesh_shape']} over {t['mesh_axes']}, {t['strategy']}, "
+    strat = t["strategy"]
+    if strat == "fsdp":
+        strat = f"fsdp({t['fsdp_axis_size']})"
+    elif strat == "tensor":
+        strat = f"tensor({t['model_axis_size']})"
+    elif strat == "2d":
+        strat = f"2d({t['fsdp_axis_size']}x{t['model_axis_size']})"
+    return (f"mesh {t['mesh_shape']} over {t['mesh_axes']}, {strat}, "
             f"{t['num_slices']} slice(s), {t['num_devices']} "
             f"device(s) ({t['device_kind']}), {t['process_count']} "
             "proc(s)")

@@ -809,14 +809,28 @@ def train_counter(model: torch.nn.Module, optimizer,
 def train_meta(model: torch.nn.Module, batch: Dict[str, torch.Tensor]
                ) -> Dict[str, Any]:
     """The geometry and state bytes a training step's counts carry (the
-    plan's collectives are priced from them)."""
+    plan's collectives are priced from them): ``target_*_bytes`` are the
+    parameters the ``tensor`` and ``2d`` plans split over the model axis
+    (``sharding.TENSOR_TARGETS``)."""
+    import re
+
+    from eksml_tpu_torch.convert import flax_path
+    from eksml_tpu_torch.parallel.sharding import TENSOR_TARGETS
+
+    def nbytes(p):
+        return p.numel() * p.element_size()
+
+    params = list(model.named_parameters())
+    targets = [p for n, p in params
+               if re.search(TENSOR_TARGETS, flax_path(n))]
     return {"kind": "train", "batch_size": int(batch["images"].shape[0]),
             "canvas": list(batch["images"].shape[1:3]),
-            "grad_bytes": sum(p.numel() * p.element_size()
-                              for p in model.parameters()
+            "grad_bytes": sum(nbytes(p) for _, p in params
                               if p.requires_grad),
-            "param_bytes": sum(p.numel() * p.element_size()
-                               for p in model.parameters())}
+            "param_bytes": sum(nbytes(p) for _, p in params),
+            "target_grad_bytes": sum(nbytes(p) for p in targets
+                                     if p.requires_grad),
+            "target_param_bytes": sum(nbytes(p) for p in targets)}
 
 
 def count_train_step(step, batch: Dict[str, torch.Tensor],
@@ -851,24 +865,45 @@ def count_predict_step(model: torch.nn.Module, images: torch.Tensor,
 
 
 def plan_collectives(meta: Dict[str, Any], mesh_shape: Dict[str, int],
-                     strategy: str = "replicated") -> List[Tuple[str, int]]:
-    """The step's collectives from its plan, as (opcode, payload bytes):
-    ``replicated`` (DDP) all-reduces the gradients once; ``fsdp``
-    (FSDP2) all-gathers the parameters and reduce-scatters the
-    gradients over its shard group, and all-reduces the shard over the
-    replicas (HSDP) where the mesh has any.  A predict step has none."""
+                     strategy: str = "replicated"
+                     ) -> List[Tuple[str, int, int]]:
+    """The step's collectives from its plan, as (opcode, payload bytes,
+    participants): ``replicated`` (DDP) all-reduces the gradients over
+    every rank; ``fsdp`` (FSDP2) all-gathers the parameters and
+    reduce-scatters the gradients over its shard group; ``tensor``
+    does that for the model-axis targets over ``model`` and
+    all-reduces the other gradients; ``2d`` does it for the targets over
+    ``fsdp x model`` and for the other leaves over ``fsdp``.  Where the
+    mesh holds replicas of a shard group, each shard is then
+    all-reduced, priced over every rank as the reference's
+    ``comm_sizes_for_mesh`` counts an all-reduce.  A predict step has
+    none."""
     grads = int(meta.get("grad_bytes", 0))
     if meta.get("kind") != "train" or not grads:
         return []
-    if strategy == "fsdp":
-        out = [("all-gather", int(meta.get("param_bytes", 0))),
-               ("reduce-scatter", grads)]
-        sizes = comm_sizes_for_mesh(mesh_shape)
-        shard = max(1, sizes["reduce-scatter"])
-        if sizes["all-reduce"] > shard:
-            out.append(("all-reduce", grads // shard))
+    sizes = comm_sizes_for_mesh(mesh_shape)
+    ranks = max(1, sizes["all-reduce"])
+    f = max(1, int(mesh_shape.get("fsdp", 1)))
+    m = max(1, int(mesh_shape.get("model", 1)))
+    params = int(meta.get("param_bytes", 0))
+    t_grads = int(meta.get("target_grad_bytes", 0))
+    t_params = int(meta.get("target_param_bytes", 0))
+
+    def sharded(p_bytes, g_bytes, k):
+        out = [("all-gather", p_bytes, k), ("reduce-scatter", g_bytes, k)]
+        if ranks > k:
+            out.append(("all-reduce", g_bytes // k, ranks))
         return out
-    return [("all-reduce", grads)]
+
+    if strategy == "fsdp":
+        return sharded(params, grads, f)
+    if strategy == "tensor":
+        return sharded(t_params, t_grads, m) + [
+            ("all-reduce", grads - t_grads, ranks)]
+    if strategy == "2d":
+        return (sharded(t_params, t_grads, f * m)
+                + sharded(params - t_params, grads - t_grads, f))
+    return [("all-reduce", grads, ranks)]
 
 
 def predict_from_counts(counts: StepCounts, target: str = DEFAULT_TARGET,
@@ -925,8 +960,8 @@ def predict_from_counts(counts: StepCounts, target: str = DEFAULT_TARGET,
             k["ms"] += t * 1e3
 
     ledger: List[Dict[str, Any]] = []
-    for opcode, nbytes in plan_collectives(counts.meta, mesh_shape, strategy):
-        k = comm_sizes["all-reduce" if opcode == "all-reduce" else opcode]
+    for opcode, nbytes, k in plan_collectives(counts.meta, mesh_shape,
+                                              strategy):
         groups = (tuple(range(max(1, k))),)
         t, ici_s, dcn_s, link, k = price_collective(
             opcode, nbytes, groups, slice_devices, ici, dcn,

@@ -20,13 +20,9 @@ reference:
   or global state inside.
 - **Only launchable topologies.**  Candidates come from
   :func:`topology_ladder`, which mirrors ``plan_mesh``'s divisibility
-  contract (``parallel/sharding.py``).  The port's trainer launches
-  ``replicated`` (DDP) and ``fsdp`` (FSDP2) only: ``ShardingPlan``
-  refuses ``tensor`` and ``2d`` although ``plan_mesh`` does their
-  arithmetic, so the ladder refuses them too, naming where they are
-  planned, instead of emitting a rung that passes ``plan_mesh`` and
-  then crashes at relaunch.  This is the one difference from the
-  reference.
+  contract (``parallel/sharding.py``) for every strategy the trainer
+  launches (``STRATEGIES``: ``replicated``, ``fsdp``, ``tensor``,
+  ``2d``), rung for rung as the reference.
 - **Hysteresis + cooldown.**  Growth needs ``GROW_PATIENCE``
   consecutive grow-capable observations and ``COOLDOWN_SEC`` since the
   last transition; a shrink needs ``SHRINK_PATIENCE`` observations and
@@ -48,14 +44,11 @@ import math
 from dataclasses import dataclass, field, replace
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
-from eksml_tpu_torch.config import SHARDING_ITEM, STRATEGIES
+from eksml_tpu_torch.config import STRATEGIES
 
 # actions a decision can carry (also the flight-event / metric label
 # vocabulary — keep charts and dashboards in sync when extending)
 ACTIONS = ("hold", "grow", "shrink")
-
-#: the strategies the port's trainer launches (``ShardingPlan``)
-LAUNCHABLE = ("replicated", "fsdp")
 
 
 @dataclass(frozen=True)
@@ -105,33 +98,44 @@ def topology_ladder(chip_options: Sequence[int],
     """Valid topologies for the given chip counts, smallest first.
 
     Mirrors ``plan_mesh``'s validation (``parallel/sharding.py``): a chip
-    count that does not split into ``num_slices`` yields NO rung, never
-    an invalid one.  The fsdp axis is sized like the
-    ``FSDP_AXIS_SIZE=0`` knob: the whole slice.  ``tensor`` and ``2d``
-    (the strategies ``model_axis`` sizes) raise ``NotImplementedError``
-    (module docstring).  ``tests/test_torch_operator.py`` pins every
-    emitted rung against the port's ``plan_mesh`` and ``ShardingPlan``'s
-    strategy check."""
+    count that does not split into ``num_slices``, or whose per-slice
+    count the model axis (or the fsdp × model product) does not divide,
+    yields NO rung, never an invalid one.  The fsdp axis is sized like
+    the ``FSDP_AXIS_SIZE=0`` knob: the rest of the slice after the model
+    axis.  ``tests/test_torch_operator.py`` pins every emitted rung
+    against the port's ``plan_mesh`` and the reference's ladder."""
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy {strategy!r} is not one of "
                          f"{STRATEGIES}")
-    if strategy not in LAUNCHABLE:
-        raise NotImplementedError(
-            f"strategy {strategy!r}: the port's ShardingPlan does not "
-            f"launch tensor parallelism yet ({SHARDING_ITEM}), so no rung "
-            f"of it is launchable; use one of {LAUNCHABLE}")
     num_slices = max(1, int(num_slices))
     rungs = []
     for chips in sorted({int(c) for c in chip_options}):
         if chips < 1 or chips % num_slices:
             continue
+        per_slice = chips // num_slices
         if strategy == "replicated":
             rungs.append(Topology(f"replicated{chips}", chips,
                                   "replicated", 1, 1, num_slices))
             continue
-        f = chips // num_slices
-        name = f"fsdp{f}-{chips}" if f != chips else f"fsdp{f}"
-        rungs.append(Topology(name, chips, "fsdp", f, 1, num_slices))
+        if strategy == "tensor":
+            m = int(model_axis) or per_slice
+            if m < 1 or per_slice % m:
+                continue
+            rungs.append(Topology(f"tensor{m}x{chips}", chips,
+                                  "tensor", 1, m, num_slices))
+            continue
+        m = 1
+        if strategy == "2d":
+            m = int(model_axis)
+            if m < 1 or per_slice % m:
+                continue
+        f = per_slice // m
+        if f < 1 or per_slice % (f * m):
+            continue
+        name = (f"2d{f}x{m}-{chips}" if strategy == "2d"
+                else f"fsdp{f}-{chips}" if f != chips
+                else f"fsdp{f}")
+        rungs.append(Topology(name, chips, strategy, f, m, num_slices))
     return tuple(rungs)
 
 

@@ -1236,13 +1236,10 @@ def main(argv=None) -> int:
             "RESILIENCE.AUTOSCALE.CHIP_OPTIONS is empty — pass "
             '--config RESILIENCE.AUTOSCALE.CHIP_OPTIONS="(1,2)" '
             "(the ladder the operator may scale over)")
-    try:
-        ladder = topology_ladder(
-            chip_options, strategy=str(sharding["STRATEGY"]),
-            model_axis=int(sharding["MODEL_AXIS_SIZE"]),
-            num_slices=max(1, int(getattr(config.TPU, "NUM_SLICES", 1))))
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    ladder = topology_ladder(
+        chip_options, strategy=str(sharding["STRATEGY"]),
+        model_axis=int(sharding["MODEL_AXIS_SIZE"]),
+        num_slices=max(1, int(getattr(config.TPU, "NUM_SLICES", 1))))
     if not ladder:
         raise SystemExit(
             f"no valid topology for CHIP_OPTIONS={chip_options} "

@@ -4,7 +4,7 @@ port of ``tools/perf_gate.py``).
 Run as::
 
     # gate (no card needed with --device cpu): the default rungs x
-    # replicated, fsdp
+    # replicated, fsdp, tensor, 2d
     python -m eksml_tpu_torch.tools.perf_gate --device cpu
 
     # accept an intended prediction change / first-time banking
@@ -24,7 +24,9 @@ canvas and batch are the rung's) under the step counter
 the H100 roofline (``predict_for_step``), the collectives from the
 sharding plan (``plan_collectives``); a serving rung (``--serve``)
 counts one ``model.predict`` (``count_predict_step``).  The liveness
-peak (``profiling/memory.py`` ``analyze_memory``) rides every record.
+peak (``profiling/memory.py`` ``analyze_memory``) rides every
+``replicated`` and serving record; every training record carries its
+``storage_per_device`` (:func:`storage_per_device`).
 
 - **bank**: ``perf_pred_h100_<rung>_<strategy>_<precision>.json`` in
   ``--bank`` (default ``artifacts/h100/``), written by
@@ -33,21 +35,29 @@ peak (``profiling/memory.py`` ``analyze_memory``) rides every record.
 - **gate**: a fresh prediction more than ``--max-regress-pct`` slower
   than its baseline FAILs naming the component
   (``compare_predictions``: "backbone-bwd predicted +34%"), and so does
-  a peak-memory regression beyond the same bound, or a peak that does
-  not fit the card.
+  a peak-memory regression beyond the same bound, a peak that does not
+  fit the card, or a ``2d`` record that stores no less per device than
+  ``replicated``'s at the same rung.
 - **calibration**: every run reports the ladder's measured steps over
   their predictions (``calibrate(calibration_points(--artifacts))``).
 
-Strategies: ``replicated`` (DDP) and ``fsdp`` (FSDP2).  One process
-counts the step, so the fsdp record's compute and liveness peak are a
-replica's whole step (its parameters are not sharded in the count); it
-differs from replicated in its collectives.  ``tensor`` and ``2d`` are
-not ported (``config.SHARDING_ITEM``) and raise, as ``ShardingPlan``
-does.  The reference's multi-slice rungs (``128_b1_s2``, ``128_b1_s4``)
-run 2d inside a slice; in the port they take fsdp inside a node and
-all-reduce the shards across nodes (HSDP), priced both hierarchically
-and as one flat ring, and FAIL unless hierarchical is strictly faster.
-Absolute milliseconds are SMOKE-width: the gate compares ratios.
+Strategies: ``replicated`` (DDP), ``fsdp`` (FSDP2), ``tensor`` and
+``2d`` (the partition rules' DTensors), priced over the reference's
+lowering mesh ``(1, fsdp_axis, model_axis)`` with ``fsdp`` sizing only
+the fsdp axis, ``tensor`` only the model axis and ``2d`` both.  One
+process counts the step, so every record's compute is a replica's whole
+step and the strategies differ in their collectives
+(``plan_collectives``).  The liveness peak of that count is not one
+device's under a sharded plan, so the ``fsdp``, ``tensor`` and ``2d``
+records carry no ``hbm`` peak; what each device stores between steps
+(its parameter shards, their momentum, the FrozenBN statistics) comes
+from the plan's layouts instead, and the reference's memory cross-gate
+holds ``2d``'s below ``replicated``'s (:func:`storage_cross_rows`; the
+reference compares liveness peaks).  The multi-node rungs
+(``128_b1_s2``, ``128_b1_s4``) take the reference's ``2d`` inside a node
+and the port's ``fsdp`` (HSDP), priced both hierarchically and as one
+flat ring, and FAIL unless hierarchical is strictly faster.  Absolute milliseconds are SMOKE-width:
+the gate compares ratios.
 """
 
 from __future__ import annotations
@@ -79,17 +89,18 @@ PRED_RUNGS: Dict[str, Dict[str, Any]] = {
     "1344_b4": {"image_size": 1344, "batch_size": 4},
     "1344_b8_remat": {"image_size": 1344, "batch_size": 8,
                       "remat": True, "param_dtype": "bfloat16"},
-    # multi-node rungs: FSDP2 inside a node, the shards all-reduced
-    # across nodes (HSDP); priced hierarchical and flat from the same
-    # count — the rung FAILs unless hierarchical is strictly faster
+    # multi-node rungs: 2d (the reference's) or FSDP2 inside a node, the
+    # shards all-reduced across nodes; priced hierarchical and flat from
+    # the same count — the rung FAILs unless hierarchical is strictly
+    # faster
     "128_b1_s2": {"image_size": 128, "batch_size": 1,
-                  "num_slices": 2, "strategies": ("fsdp",)},
+                  "num_slices": 2, "strategies": ("fsdp", "2d")},
     "128_b1_s4": {"image_size": 128, "batch_size": 1,
-                  "num_slices": 4, "strategies": ("fsdp",)},
+                  "num_slices": 4, "strategies": ("fsdp", "2d")},
 }
 
 DEFAULT_RUNGS = "128_b1,256_b1,128_b1_s2,128_b1_s4"
-DEFAULT_STRATEGIES = "replicated,fsdp"
+DEFAULT_STRATEGIES = "replicated,fsdp,tensor,2d"
 
 # Serving (bucket, batch) rungs priced by --serve: the engine's predict
 # forward at SMOKE widths.
@@ -122,14 +133,6 @@ def _load_json(path: str) -> Optional[Dict]:
 def _relpath(path: str) -> str:
     rel = os.path.relpath(path, REPO)
     return path if rel.startswith("..") else rel
-
-
-def refuse_unported(strategy: str) -> None:
-    """``tensor`` and ``2d`` raise ``NotImplementedError`` naming the
-    roadmap item, as ``ShardingPlan`` does."""
-    from eksml_tpu_torch.parallel.sharding import _refuse_unported
-
-    _refuse_unported(strategy)
 
 
 def _smoke():
@@ -178,16 +181,22 @@ def row_axis_widths(rec: Dict[str, Any]) -> Optional[Dict[str, int]]:
     return axis_widths(rec["mesh_shape"])
 
 
-def mesh_for(strategy: str, fsdp_axis: int = 2,
-             num_slices: int = 1) -> Dict[str, int]:
-    """The mesh a strategy's collectives are priced over: one device
-    for ``replicated`` (the reference's replicated lowering), an
-    ``fsdp_axis``-wide shard group for ``fsdp``, times ``num_slices``
-    nodes."""
-    refuse_unported(strategy)
+def mesh_for(strategy: str, fsdp_axis: int = 2, num_slices: int = 1,
+             model_axis: int = 2) -> Dict[str, int]:
+    """The mesh a strategy's collectives are priced over (the
+    reference's lowering mesh): one device for ``replicated``, an
+    ``fsdp_axis``-wide shard group for ``fsdp``, a ``model_axis``-wide
+    one for ``tensor``, both for ``2d``, times ``num_slices`` nodes."""
+    from eksml_tpu_torch.config import STRATEGIES
+
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy {strategy!r} is not one of "
+                         f"{STRATEGIES}")
     if strategy == "replicated":
         return {}
-    mesh = {"data": 1, "fsdp": int(fsdp_axis), "model": 1}
+    mesh = {"data": 1,
+            "fsdp": int(fsdp_axis) if strategy in ("fsdp", "2d") else 1,
+            "model": int(model_axis) if strategy in ("tensor", "2d") else 1}
     if num_slices > 1:
         mesh = {"slice": int(num_slices), **mesh}
     return mesh
@@ -249,16 +258,49 @@ def _count_meta(counts) -> Dict[str, Any]:
             "torch": torch.__version__, "ops": len(counts.ops)}
 
 
+def storage_per_device(cfg, strategy: str,
+                       mesh: Dict[str, int]) -> Dict[str, int]:
+    """The bytes one device stores between steps under ``strategy`` over
+    ``mesh`` (``mesh_for``): each parameter's local shard
+    (``ShardingPlan.layout``'s ``local_shape``; FSDP2's padded shard
+    under default ``fsdp``), the SGD momentum of each trainable one,
+    which lies like its parameter, and the FrozenBN statistics, which no
+    plan shards.  Counted on a meta-device model of ``cfg``."""
+    import math
+
+    import torch
+
+    from eksml_tpu_torch.models import MaskRCNN
+    from eksml_tpu_torch.models.mask_rcnn import dtype_of
+    from eksml_tpu_torch.parallel.sharding import ShardingPlan
+
+    with torch.device("meta"):
+        model = MaskRCNN.from_config(cfg)
+    itemsize = dtype_of(str(cfg.TRAIN.PARAM_DTYPE)).itemsize
+    plan = ShardingPlan(strategy, None, tuple(mesh.values()) or (1,),
+                        tuple(mesh) or ("data",))
+    params = optimizer = 0
+    for name, p in model.named_parameters():
+        local = math.prod(plan.layout(name, p.shape).local_shape)
+        params += local * itemsize
+        if p.requires_grad:
+            optimizer += local * itemsize
+    buffers = sum(b.numel() for b in model.buffers()) * itemsize
+    return {"params_bytes": params, "optimizer_bytes": optimizer,
+            "buffers_bytes": buffers,
+            "total_bytes": params + optimizer + buffers}
+
+
 def predict_rung(rung: str, strategy: str, precision: str,
                  fsdp_axis: int = 2, config_overrides=None,
-                 device: str = "cuda", counted=None) -> Dict[str, Any]:
+                 device: str = "cuda", counted=None,
+                 model_axis: int = 2) -> Dict[str, Any]:
     """Count one rung (or take ``counted``: a ``count_rung`` result of
     the same geometry) and price it under ``strategy`` on the H100
     roofline (``predict_for_step``, as the trainer's gauge and the ladder
     price) — the fresh-prediction record the gate compares and banks."""
     from eksml_tpu_torch.profiling import predict as P
 
-    refuse_unported(strategy)
     spec = PRED_RUNGS[rung]
     t0 = time.time()
     counts, cfg = counted or count_rung(rung, precision, config_overrides,
@@ -269,7 +311,7 @@ def predict_rung(rung: str, strategy: str, precision: str,
     precision = str(cfg.TRAIN.PRECISION)
     num_slices = int(spec.get("num_slices", 1))
     exchange = "hierarchical" if num_slices > 1 else "flat"
-    mesh = mesh_for(strategy, fsdp_axis, num_slices)
+    mesh = mesh_for(strategy, fsdp_axis, num_slices, model_axis)
     pred = P.predict_for_step(counts, None, mesh, precision, num_slices,
                               exchange, strategy)
     rec = dict(pred)
@@ -283,6 +325,7 @@ def predict_rung(rung: str, strategy: str, precision: str,
                      "remat": bool(cfg.TRAIN.REMAT),
                      "param_dtype": str(cfg.TRAIN.PARAM_DTYPE)},
         "mesh_shape": mesh,
+        "storage_per_device": storage_per_device(cfg, strategy, mesh),
         # absolute ms are SMOKE-width: gate on ratios, read the
         # calibration for how far they can be trusted
         "model_widths": "smoke",
@@ -290,6 +333,10 @@ def predict_rung(rung: str, strategy: str, precision: str,
         "count_seconds": round(time.time() - t0, 1),
         "banked_at": _utcnow(),
     })
+    if strategy != "replicated":
+        # the count's liveness peak is a replica's whole step, not one
+        # device's under this plan (the replicated record gates it)
+        rec.pop("hbm", None)
     if num_slices > 1:
         # the SAME count as one flat ring at the slowest link — the
         # counterfactual the hierarchical exchange is gated against
@@ -297,7 +344,7 @@ def predict_rung(rung: str, strategy: str, precision: str,
                                   num_slices, "flat", strategy)
         rec.update({
             "num_slices": num_slices,
-            "slice_devices": int(fsdp_axis),
+            "slice_devices": int(mesh["fsdp"]) * int(mesh["model"]),
             "exchange": exchange,
             "flat_predicted_step_time_ms":
                 flat["predicted_step_time_ms"],
@@ -410,12 +457,12 @@ def hbm_regression_error(fresh: Dict, base: Dict,
             f"{fc.get(worst, 0)} bytes")
 
 
-def hbm_cross_rows(fresh_records: List[Dict[str, Any]]
-                   ) -> List[Dict[str, Any]]:
-    """The reference's sharding cross-gate: at the same rung, the 2d
-    lowering's predicted peak HBM must be strictly below replicated's.
-    One verdict row per rung where this run priced both; the port
-    refuses 2d, so it gives none until tensor parallelism is ported."""
+def storage_cross_rows(fresh_records: List[Dict[str, Any]]
+                       ) -> List[Dict[str, Any]]:
+    """The reference's sharding memory cross-gate, on what each device
+    stores: at the same rung the 2d plan's bytes per device
+    (``storage_per_device``) must be strictly below replicated's.  One
+    verdict row per rung where this run priced both."""
     by_rung: Dict[str, Dict[str, Dict]] = {}
     for rec in fresh_records:
         rung, strat = rec.get("rung"), rec.get("strategy")
@@ -426,25 +473,26 @@ def hbm_cross_rows(fresh_records: List[Dict[str, Any]]
         pair = by_rung[rung]
         if "replicated" not in pair or "2d" not in pair:
             continue
-        rp = ((pair["replicated"].get("hbm") or {})
-              .get("peak_hbm_bytes"))
-        dp = ((pair["2d"].get("hbm") or {}).get("peak_hbm_bytes"))
+        rp = (pair["replicated"].get("storage_per_device")
+              or {}).get("total_bytes")
+        dp = (pair["2d"].get("storage_per_device")
+              or {}).get("total_bytes")
         if not rp or not dp:
             continue
         row: Dict[str, Any] = {
-            "key": f"{rung}_hbm_cross_strategy",
-            "check": "2d predicted peak strictly below replicated",
-            "replicated_peak_hbm_bytes": rp,
-            "2d_peak_hbm_bytes": dp,
-            "peak_ratio_pct": round(100.0 * dp / rp, 2),
+            "key": f"{rung}_storage_cross_strategy",
+            "check": "2d bytes stored per device strictly below "
+                     "replicated",
+            "replicated_storage_bytes": rp,
+            "2d_storage_bytes": dp,
+            "storage_ratio_pct": round(100.0 * dp / rp, 2),
             "gate": "PASS" if dp < rp else "FAIL",
         }
         if row["gate"] == "FAIL":
             row["error"] = (
-                f"at rung {rung} the 2d lowering's predicted peak HBM "
-                f"({dp} bytes) is not strictly below replicated's "
-                f"({rp} bytes) — sharding stopped paying for its "
-                f"per-device memory plan")
+                f"at rung {rung} the 2d plan stores {dp} bytes per "
+                f"device, not strictly below replicated's {rp} — "
+                f"sharding stopped paying for its per-device memory plan")
         rows.append(row)
     return rows
 
@@ -581,11 +629,11 @@ def _plan(args, p) -> List[tuple]:
     bad = [r for r in rungs if r not in PRED_RUNGS]
     if bad:
         p.error(f"unknown rung(s) {bad}; known: {sorted(PRED_RUNGS)}")
-    for strategy in strategies:
-        try:
-            refuse_unported(strategy)
-        except NotImplementedError as e:
-            p.error(str(e))
+    from eksml_tpu_torch.config import STRATEGIES
+
+    bad = [s for s in strategies if s not in STRATEGIES]
+    if bad:
+        p.error(f"unknown strategy(ies) {bad}; known: {STRATEGIES}")
     # a rung may restrict its strategies (the multi-node rungs mean
     # something only over a sharded layout inside the node)
     return [(rung, strategy) for rung in rungs for strategy in strategies
@@ -619,7 +667,8 @@ def run_gate(args, plan) -> tuple:
             fresh = predict_rung(rung, strategy, args.precision,
                                  fsdp_axis=args.fsdp_axis,
                                  device=args.device,
-                                 counted=counted[geometry])
+                                 counted=counted[geometry],
+                                 model_axis=args.model_axis)
         key = fresh["key"]
         fresh_records.append(fresh)
         print(f"perf_gate: {key}: predicted "
@@ -647,12 +696,11 @@ def run_gate(args, plan) -> tuple:
                            args.allow_missing_baseline)
             ok = ok and row["gate"] != "FAIL"
         rows.append(row)
-    if not args.serve:
-        # the sharding memory cross-gate runs in BOTH modes:
-        # --update-baseline must never bank a violating pair
-        for row in hbm_cross_rows(fresh_records):
-            ok = ok and row["gate"] != "FAIL"
-            rows.append(row)
+    # the memory cross-gate runs in both modes: --update-baseline must
+    # never bank a violating pair
+    for row in storage_cross_rows(fresh_records):
+        ok = ok and row["gate"] != "FAIL"
+        rows.append(row)
     return ok, rows, fresh_records
 
 
@@ -665,13 +713,16 @@ def parse_args(argv=None):
                    help=f"comma list of {sorted(PRED_RUNGS)} "
                         f"[%(default)s]")
     p.add_argument("--strategies", default=DEFAULT_STRATEGIES,
-                   help="comma list of replicated, fsdp [%(default)s]")
+                   help="comma list of replicated, fsdp, tensor, 2d "
+                        "[%(default)s]")
     p.add_argument("--precision", default="float32",
                    choices=["bfloat16", "float32"],
                    help="the training chart's default [%(default)s]")
     p.add_argument("--fsdp-axis", type=int, default=2,
-                   help="fsdp shard group (devices per node on the "
-                        "multi-node rungs) [%(default)s]")
+                   help="fsdp shard group [%(default)s]")
+    p.add_argument("--model-axis", type=int, default=2,
+                   help="model axis of the tensor and 2d plans "
+                        "[%(default)s]")
     p.add_argument("--bank", default=DEFAULT_BANK,
                    help="where perf_pred_<target>_*.json baselines live "
                         "[artifacts/h100]")

@@ -32,7 +32,8 @@ docstring.
 
 Across GPUs (one process each, ``parallel/distributed.py``) the model
 trains under the sharding plan's wrapper (``parallel/sharding.py``:
-DDP or FSDP2).  Every rank takes its slice of the global batch; the
+DDP, FSDP2, or the partition rules' DTensors under ``tensor``, ``2d``
+and custom ``TRAIN.SHARDING.RULES``).  Every rank takes its slice of the global batch; the
 losses are per-image means over the batch, so with equal slices the
 wrappers' gradient average is the global batch's gradient, and the
 logged losses and ``grad_norm`` are averaged across ranks before
@@ -61,7 +62,8 @@ import math
 import os
 import sys
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -187,21 +189,42 @@ def cast_for_storage(model: torch.nn.Module, param_dtype: str) -> None:
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
-    """This rank's shard of a DTensor (FSDP2), ``t`` itself otherwise."""
+    """This rank's shard of a DTensor, ``t`` itself otherwise."""
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def global_norm(tensors: Sequence[torch.Tensor],
-                group=None) -> torch.Tensor:
+def _shard_groups(t: torch.Tensor) -> Tuple[Any, ...]:
+    """The process groups ``t``'s shards split over: one per mesh axis
+    on which the DTensor ``t`` is ``Shard``; none for a whole tensor."""
+    if not hasattr(t, "placements"):
+        return ()
+    from eksml_tpu_torch.parallel.mesh import axis_groups
+
+    mesh = t.device_mesh
+    return axis_groups(mesh, [a for a, p in zip(mesh.mesh_dim_names,
+                                                t.placements)
+                              if p.is_shard()])
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: the square root of the sum of squares, in
     the gradients' dtype (bfloat16 under bfloat16 storage, as optax: each
     tensor's sum is accumulated in float32 and rounded, the sums added in
-    that dtype).  DTensor gradients (FSDP2 shards) add their local
-    squares, summed over ``group`` (the shard group) by one all-reduce,
-    so the norm is the whole gradients' and never a partial."""
-    total = sum((t * t).sum() for t in map(_local, tensors))
-    if group is not None:
-        dist.all_reduce(total, group=group)
+    that dtype).  A DTensor gradient adds its local squares, summed over
+    the ranks that hold its other shards (one all-reduce per shard axis,
+    for all the gradients split over the same axes together), and a
+    gradient every rank holds whole counts once, so the norm is the
+    whole gradients' whatever mix of placements the plan gives."""
+    by_groups: Dict[Tuple[Any, ...], Any] = {}
+    for t in tensors:
+        groups = _shard_groups(t)
+        local = _local(t)
+        by_groups[groups] = by_groups.get(groups, 0) + (local * local).sum()
+    total = by_groups.pop((), 0)
+    for groups, part in by_groups.items():
+        for group in groups:
+            dist.all_reduce(part, group=group)
+        total = total + part
     return torch.sqrt(total)
 
 
@@ -218,16 +241,15 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    sched: Callable[[int], float], gradient_clip: float = 0.0,
-                    norm_group=None):
+                    sched: Callable[[int], float], gradient_clip: float = 0.0):
     """The one training step: ``step(batch, priorities, step_index)`` →
     metrics (the losses, ``learning_rate`` and ``grad_norm``, as tensors
     on the model's device except the learning rate) after one update of
     ``model`` in place.  ``grad_norm`` is of the raw gradients, before
     clipping, as ``train.py:550``.
 
-    ``model`` may be the plan's wrapper (DDP, or a module under FSDP2
-    with ``norm_group`` its shard group).  Under a process group the
+    ``model`` may be the plan's wrapper (DDP, or a module whose
+    parameters the plan sharded).  Under a process group the
     losses and ``grad_norm`` are averaged across ranks (one all-reduce),
     so every rank returns the same metrics: the global batch's.
 
@@ -251,7 +273,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 p.grad = torch.zeros_like(p)
         with named_scope("optimizer"):
             grads = [p.grad for p in params]
-            norm = global_norm(grads, norm_group)
+            norm = global_norm(grads)
             if gradient_clip > 0:
                 clip_by_global_norm_(grads, gradient_clip, norm)
             lr = sched(step_index)
@@ -498,18 +520,17 @@ class Trainer:
                          loaded, expected, self.cfg.BACKBONE.WEIGHTS)
         if self.train_module is None or not dist.is_initialized():
             self.model.load_state_dict(params)
-        else:   # already wrapped (sharded under FSDP2): every rank loads
+        else:   # already wrapped (maybe sharded): every rank loads
             load_full_state(self.model, params)
         if self.train_module is None:
             self.train_module = self.plan.wrap(self.model)
         self.model.train()
-        # built on the wrapped parameters (DTensors under FSDP2); the
+        # built on the wrapped parameters (DTensors where sharded); the
         # decay mask comes from the names, which wrapping keeps
         self.optimizer, self.sched = make_optimizer(self.model, self.cfg)
         self._step = make_train_step(self.train_module, self.optimizer,
                                      self.sched,
-                                     float(self.cfg.TRAIN.GRADIENT_CLIP),
-                                     norm_group=self.plan.norm_group)
+                                     float(self.cfg.TRAIN.GRADIENT_CLIP))
         self.generator.manual_seed(int(self.cfg.TRAIN.SEED))
         self.step = 0
         self._publish_memory_budget()
@@ -534,15 +555,15 @@ class Trainer:
         """The live state as a checkpoint holds it, whole tensors under
         the module's own names at any world size and strategy
         (references to the live tensors where they are whole: the
-        checkpoint manager copies them).  A collective under FSDP2, which
-        gathers every shard."""
+        checkpoint manager copies them).  A collective where the plan
+        sharded the parameters, which gathers every shard."""
         return {"step": int(self.step), "model": full_state_dict(self.model),
                 "optimizer": full_optimizer_state(self.optimizer),
                 "generator": self.generator.get_state()}
 
     def state_bytes(self):
-        """``(param_bytes, opt_bytes)`` this rank holds (its shards under
-        FSDP2), also published as the state-byte gauges."""
+        """``(param_bytes, opt_bytes)`` this rank holds (its shards where
+        the plan sharded them), also published as the state-byte gauges."""
         return publish_state_byte_gauges(self.model.state_dict(),
                                          self.optimizer.state_dict()["state"])
 
@@ -706,9 +727,9 @@ class Trainer:
 
         Under a process group every rank runs this loop over its own
         ``batches`` (its shard); ``TRAIN.SYNC_CHECK_PERIOD`` checks that
-        the replicas agree (``replicated`` only: under ``fsdp`` the shards
-        legitimately differ and the check is disabled with a warning, as
-        in the reference), and the SIGTERM flag is agreed across ranks
+        the replicas agree (``replicated`` only: under the sharded plans
+        the shards legitimately differ and the check is disabled with a
+        warning, as in the reference), and the SIGTERM flag is agreed across ranks
         every ``RESILIENCE.PREEMPT_SYNC_PERIOD`` steps (0: the log period).
 
         Returns the rows logged every ``TRAIN.LOG_PERIOD`` steps and at
@@ -1349,12 +1370,14 @@ class Trainer:
 
     def eval_model(self) -> torch.nn.Module:
         """The module the eval predicts with: the inner module under DDP
-        and plain training; under FSDP2 a local, unsharded replica built
-        from the full state (the gather checkpoints use, a collective),
-        so no FSDP hook fires inside the predict loop and the ranks'
-        eval batch counts are free to differ (the reference localizes
-        its params the same way, ``eksml_tpu/evalcoco/runner.py``)."""
-        if not hasattr(self.model, "unshard"):
+        and plain training; where the plan sharded the parameters (FSDP2,
+        ``tensor``, ``2d``, custom rules) a local, unsharded replica
+        built from the full state (the gather checkpoints use, a
+        collective), so no collective runs inside the predict loop and
+        the ranks' eval batch counts are free to differ (the reference
+        localizes its params the same way,
+        ``eksml_tpu/evalcoco/runner.py``)."""
+        if not any(hasattr(p, "to_local") for p in self.model.parameters()):
             return self.model
         replica = MaskRCNN.from_config(self.cfg).to(self.device)
         cast_for_storage(replica, self.cfg.TRAIN.PARAM_DTYPE)

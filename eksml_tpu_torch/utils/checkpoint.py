@@ -129,16 +129,12 @@ def full_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
 
 def _local_chunk(full: torch.Tensor, dt) -> torch.Tensor:
     """This rank's part of ``full`` under the placements of the DTensor
-    ``dt`` (FSDP2 shards split as ``torch.chunk`` does, trailing ranks
-    possibly empty)."""
-    coord = dt.device_mesh.get_coordinate()
-    for i, placement in enumerate(dt.placements):
-        if placement.is_shard():
-            chunks = torch.chunk(full, dt.device_mesh.size(i),
-                                 dim=placement.dim)
-            full = (chunks[coord[i]] if coord[i] < len(chunks)
-                    else full.narrow(placement.dim, 0, 0))
-    return full
+    ``dt`` (FSDP2's shards, or the partition rules' under ``tensor``,
+    ``2d`` and custom rules; uneven shards split as ``torch.chunk``
+    does, trailing ranks possibly empty)."""
+    from eksml_tpu_torch.parallel.sharding import local_chunk
+
+    return local_chunk(full, dt.device_mesh, dt.placements)
 
 
 @torch.no_grad()

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -39,6 +40,7 @@ from eksml_tpu.ops import anchors as j_anchors  # noqa: E402
 from eksml_tpu.utils import checkpoint as j_checkpoint  # noqa: E402
 from eksml_tpu_torch import config as t_config  # noqa: E402
 from eksml_tpu_torch import train as t_train  # noqa: E402
+from eksml_tpu_torch.parallel import sharding as t_sharding  # noqa: E402
 from eksml_tpu_torch.convert import from_flax  # noqa: E402
 from eksml_tpu_torch.models.backbone_loader import load_r50_npz  # noqa: E402
 from eksml_tpu_torch.resilience import integrity  # noqa: E402
@@ -408,22 +410,45 @@ def test_backbone_npz_matches_the_reference(jax_run, tmp_path):
     trainer.close()
 
 
+_SYNTHETIC = ["--synthetic", "--total-steps", "2", "--config",
+              *SMOKE_OVERRIDES, "TRAIN.BATCH_SIZE_PER_CHIP=1",
+              "TRAIN.STEPS_PER_EPOCH=2", "TRAIN.LOG_PERIOD=1",
+              "TELEMETRY.PORT=0"]
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--synthetic", "--config", "TRAIN.SHARDING.STRATEGY=tensor",
-      "TRAIN.SHARDING.MODEL_AXIS_SIZE=1"], "item 4"),
+    (_SYNTHETIC + ["TRAIN.SHARDING.STRATEGY=tensor",
+                   "TRAIN.SHARDING.MODEL_AXIS_SIZE=1"], "item 4"),
+    (_SYNTHETIC + ["TRAIN.SHARDING.STRATEGY=2d",
+                   "TRAIN.SHARDING.MODEL_AXIS_SIZE=1",
+                   "TRAIN.SHARDING.RULES=(('fpn/.*/kernel$','2d'),"
+                   "('maskrcnn/deconv/kernel$',(None,None,None,'model')),"
+                   "('.*','fsdp'))"], "item 4"),
 ])
-def test_entry_point_options_that_wait(tmp_path, argv, match):
-    # main() finalizes the global config: restore it, so the rejected
-    # overrides do not reach the next test of this process
+def test_entry_point_options_that_wait(tmp_path, argv, match, capfd):
+    """``--synthetic`` under ``tensor``, and under ``2d`` with custom
+    rules, no longer waits on ``match`` (the roadmap item that held it):
+    it trains to the end under the plan its config names."""
+    # main() finalizes the global config: restore it, so the overrides do
+    # not reach the next test of this process
     saved = t_config.config.to_dict()
     try:
-        with pytest.raises(NotImplementedError, match=match):
-            t_train.main(["--device", "cpu", "--logdir", str(tmp_path)]
-                         + argv)
+        assert t_train.main(["--device", "cpu", "--logdir",
+                             str(tmp_path)] + argv) == 0
     finally:
         t_config.config.freeze(False)
         t_config.config.from_dict(saved)
         t_config.config.freeze()
+    logged = "".join(capfd.readouterr())
+    assert match not in logged
+    cfg = tiny_cfg(t_config, *argv[argv.index("--config") + 1:])
+    assert "sharding plan: " + t_sharding.ShardingPlan.from_config(
+        cfg).describe() in logged
+    assert ("tensor(model=1, rules=2)" in logged
+            or "2d(fsdp=1, model=1, rules=3)" in logged)
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert [json.loads(ln)["step"] for ln in f
+                if '"total_loss"' in ln][-1] == 2
 
 
 def test_entry_point_profile_writes_a_capture(tmp_path):

@@ -436,7 +436,8 @@ def test_decode_workers_import_no_torch():
             "or m.startswith('torch.')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
-                         env={**os.environ, "PYTHONPATH": REPO})
+                         env={**os.environ, "PYTHONPATH": REPO,
+                              "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -89,7 +90,7 @@ def launch(scenario, workdir, local_form, timeout=240):
     base = {k: v for k, v in os.environ.items()
             if k not in ("PROCESS_ID", "SLICE_INDEX", "JOB_COMPLETION_INDEX",
                          "LOCAL_RANK", "LOCAL_WORLD_SIZE", "NUM_PROCESSES")}
-    base.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", OMP_NUM_THREADS="2",
+    base.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", OMP_NUM_THREADS="1",
                 PYTHONPATH=REPO)
     procs = []
     for r in range(2):
@@ -386,22 +387,43 @@ def test_coordinator_writes_and_ranks_stay_in_sync(resume_ranks):
 
 
 # ---------------------------------------------------------------------
-# what this slice does not port
+# the model-axis plans and custom rules, as the reference builds them
+# (their 4-rank steps: tests/test_torch_sharding.py)
 # ---------------------------------------------------------------------
 
 
+def _reference_plan(strategy, shape, axes, rules=()):
+    from jax.sharding import Mesh
+
+    from eksml_tpu.parallel import sharding as j_sharding
+
+    mesh = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                axes)
+    return j_sharding.ShardingPlan(strategy, mesh, rules=rules)
+
+
 @pytest.mark.parametrize("strategy", ["tensor", "2d"])
-def test_tensor_parallel_strategies_raise(strategy):
+def test_tensor_parallel_strategies_raise(strategy, tmp_path):
+    """Nothing is refused any more: the plan builds the reference's mesh
+    and describes itself as the reference's plan does, and a Trainer
+    takes it."""
     cfg = cfg_of(t_config, *ONE, f"TRAIN.SHARDING.STRATEGY={strategy}",
                  "TRAIN.SHARDING.MODEL_AXIS_SIZE=1")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        ShardingPlan.from_config(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        t_train.Trainer(cfg, "", device="cpu")
+    plan = ShardingPlan.from_config(cfg)
+    ref = _reference_plan(strategy, plan.mesh_shape, plan.mesh_axes)
+    assert plan.describe() == ref.describe()
+    assert plan.rules == ref.rules
+    trainer = t_train.Trainer(cfg, str(tmp_path), device="cpu")
+    assert trainer.plan.describe() == ref.describe()
+    trainer.close()
 
 
 def test_custom_sharding_rules_raise():
+    rules = ((r"fpn/.*/kernel$", "tensor"), (".*", "replicated"))
     cfg = cfg_of(t_config, *ONE, "TRAIN.SHARDING.STRATEGY=fsdp",
-                 "TRAIN.SHARDING.RULES=(('.*','replicated'),)")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        ShardingPlan.from_config(cfg)
+                 f"TRAIN.SHARDING.RULES={rules!r}")
+    plan = ShardingPlan.from_config(cfg)
+    ref = _reference_plan("fsdp", plan.mesh_shape, plan.mesh_axes, rules)
+    assert plan.rules == ref.rules == rules
+    assert plan.describe() == ref.describe() == "fsdp(axis=1, rules=2)"
+    assert plan.custom_rules and not plan.uses_fsdp2

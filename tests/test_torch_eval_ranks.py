@@ -26,6 +26,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -152,7 +153,7 @@ def test_entry_point_two_ranks_train_on_coco_with_eval(tmp_path):
                             "JOB_COMPLETION_INDEX")}
         env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    NUM_PROCESSES="1", LOCAL_WORLD_SIZE="2",
-                   LOCAL_RANK=str(r), OMP_NUM_THREADS="2", PYTHONPATH=REPO)
+                   LOCAL_RANK=str(r), OMP_NUM_THREADS="1", PYTHONPATH=REPO)
         logs.append(tmp_path / f"rank{r}.log")
         with open(logs[-1], "w") as f:
             procs.append(subprocess.Popen(argv, env=env, cwd=REPO, stdout=f,

@@ -26,6 +26,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -340,7 +341,8 @@ def test_chart_arguments_serve_with_a_serve_id(logdir, tmp_path):
          "--addr", "127.0.0.1", "--port-file", port_file, "--config",
          *CHART_CANARY, *SMOKE_OVERRIDES, *SERVE[:3],
          "SERVE.BUCKETS=((128,128),)"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         deadline = time.monotonic() + 120
         health = None

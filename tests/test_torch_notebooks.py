@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -100,7 +101,8 @@ def test_notebook_runs_on_the_cpu(flow, fs_root):
 
     path = os.path.join(NOTEBOOKS, FLOWS[flow])
     env = dict(os.environ, FS_ROOT=fs_root, EKSML_NB_DEVICE="cpu",
-               EKSML_NB_CONFIG=" ".join(NB_CONFIG), PYTHONPATH=REPO)
+               EKSML_NB_CONFIG=" ".join(NB_CONFIG), PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     env.pop("DATA_DIR", None)
     code = ("import sys\n"
             "from eksml_tpu_torch.tools.run_notebook import run\n"

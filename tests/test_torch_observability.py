@@ -31,6 +31,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -758,7 +759,7 @@ def test_fit_records_the_ranks_exporter_only_on_local_rank_zero(tmp_path):
         env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
                    NUM_PROCESSES="1", PROCESS_ID="0",
                    LOCAL_WORLD_SIZE="2", LOCAL_RANK=str(r),
-                   EKSML_TEST_HTTP_PORT=str(http))
+                   EKSML_TEST_HTTP_PORT=str(http), OMP_NUM_THREADS="1")
         logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w+"))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests",

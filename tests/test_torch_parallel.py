@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -363,7 +364,7 @@ def test_entry_point_two_ranks_agree_on_sigterm(tmp_path):
                             "JOB_COMPLETION_INDEX")}
         env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    NUM_PROCESSES="1", LOCAL_WORLD_SIZE="2",
-                   LOCAL_RANK=str(r), OMP_NUM_THREADS="2", PYTHONPATH=REPO)
+                   LOCAL_RANK=str(r), OMP_NUM_THREADS="1", PYTHONPATH=REPO)
         logs.append(tmp_path / f"rank{r}.log")
         with open(logs[-1], "w") as f:
             procs.append(subprocess.Popen(argv, env=env, cwd=REPO, stdout=f,
@@ -400,12 +401,14 @@ def test_plan_without_a_group_runs_the_plain_model():
     cfg = _cfg(t_config, list(SMOKE_OVERRIDES) + [
         "TRAIN.SHARDING.STRATEGY=fsdp"])
     plan = t_sharding.ShardingPlan.from_config(cfg)
-    assert plan.mesh is None and plan.norm_group is None
+    assert plan.mesh is None
     assert (plan.mesh_shape, plan.mesh_axes) == ((1, 1, 1),
                                                  ("data", "fsdp", "model"))
     assert plan.describe() == "fsdp(axis=1, rules=1)"
     model = MaskRCNN.from_config(cfg)
     assert plan.wrap(model) is model
+    # the gradients stay whole, so the global norm sums them on no group
+    assert not any(hasattr(p, "to_local") for p in model.parameters())
     text = plan.explain(model)
     assert text.count("replicated") == len(model.state_dict())
     assert t_sharding.tree_bytes_per_device(model.state_dict()) == sum(
@@ -416,8 +419,9 @@ def test_chip_smoke_dist_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     """``chip_smoke.py``'s train and dist phases at SMOKE widths on the
     CPU (a gloo group of one rank; the wrappers take their plain
     versions, counted here as the kernels would be): the same launches
-    per step under DDP and FSDP2, step-1 losses equal to the plain
-    phase's, the FSDP2 checkpoint restored bitwise without a group."""
+    per step under DDP, FSDP2, ``tensor`` and ``2d``, step-1 losses equal
+    to the plain phase's, the FSDP2 checkpoint restored bitwise without a
+    group."""
     import chip_smoke
 
     import eksml_tpu_torch.device as t_device
@@ -455,9 +459,13 @@ def test_chip_smoke_dist_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     out = chip_smoke.phase_dist(cfg, KERNELS, 0, train, str(tmp_path),
                                 device="cpu")
     assert not torch.distributed.is_initialized()
-    for strategy in ("replicated", "fsdp"):
+    for strategy, _ in chip_smoke.DIST_STRATEGIES:
         rec = out[strategy]
         assert rec["loss_rel_diff_step1"] == 0.0
         assert rec["launches"] == {"roi_align_fwd": 6, "roi_align_bwd": 4,
                                    "copy_to_global": 16}
+    assert [s for s, _ in chip_smoke.DIST_STRATEGIES] == [
+        "replicated", "fsdp", "tensor", "2d"]
     assert out["fsdp"]["plan"] == "fsdp(axis=1, rules=1)"
+    assert out["tensor"]["plan"] == "tensor(model=1, rules=2)"
+    assert out["2d"]["plan"] == "2d(fsdp=1, model=1, rules=2)"

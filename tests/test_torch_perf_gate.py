@@ -8,8 +8,8 @@
   FAILs naming the live-at-peak component that grew; the committed
   ``artifacts/h100/`` entry of the rung gates PASS against this recount
   at the default ``--max-regress-pct``; the multi-node rungs price
-  hierarchical below flat; ``tensor`` and ``2d`` raise naming Queue 1
-  item 4; ``--calibrate-only`` over seeded ladder lines is
+  hierarchical below flat; ``tensor`` and ``2d`` are counted and priced
+  over the reference's lowering mesh; ``--calibrate-only`` over seeded ladder lines is
   ``calibrate(calibration_points(...))``; the CLI banks and gates
   (``--device cpu``: it counts on the card unless asked,
   ``tests/test_torch_bench.py``); the seeded model leaves the caller's
@@ -31,7 +31,6 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from eksml_tpu_torch.config import SHARDING_ITEM  # noqa: E402
 from eksml_tpu_torch.fsio import atomic_write_json  # noqa: E402
 from eksml_tpu_torch.profiling import predict  # noqa: E402
 from eksml_tpu_torch.tools import bench_gate, perf_gate  # noqa: E402
@@ -170,12 +169,73 @@ def test_the_multi_node_rungs_price_hierarchical_below_flat(counted):
 @pytest.mark.parametrize("strategy", ["tensor", "2d"])
 def test_unported_strategies_raise_naming_the_item(counted, strategy,
                                                     capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        perf_gate.predict_rung(RUNG, strategy, "float32", counted=counted)
+    """The model-axis strategies are counted and priced: over the
+    reference's lowering mesh, with the targets' all-gather and
+    reduce-scatter over their shard group, and an unknown strategy is
+    refused by name."""
+    rec = perf_gate.predict_rung(RUNG, strategy, "float32", counted=counted)
+    meta = counted[0].meta
+    f = 2 if strategy == "2d" else 1
+    assert rec["mesh_shape"] == {"data": 1, "fsdp": f, "model": 2}
+    assert rec["key"] == f"{RUNG}_{strategy}_float32"
+    rows = [(r["opcode"], r["bytes"], r["group_size"])
+            for r in rec["collectives"]]
+    tp, tg = meta["target_param_bytes"], meta["target_grad_bytes"]
+    rest_p, rest_g = meta["param_bytes"] - tp, meta["grad_bytes"] - tg
+    assert 0 < tp < meta["param_bytes"] and 0 < tg < meta["grad_bytes"]
+    if strategy == "tensor":
+        # the targets over model, the other gradients over every rank
+        assert rows == [("all-gather", tp, 2), ("reduce-scatter", tg, 2),
+                        ("all-reduce", rest_g, 2)]
+    else:
+        # the targets over fsdp x model, the rest over fsdp, whose shards
+        # are then all-reduced over the model axis' replicas
+        assert rows == [("all-gather", tp, 4), ("reduce-scatter", tg, 4),
+                        ("all-gather", rest_p, 2),
+                        ("reduce-scatter", rest_g, 2),
+                        ("all-reduce", rest_g // 2, 4)]
     with pytest.raises(SystemExit):
-        perf_gate.main(["--strategies", f"replicated,{strategy}",
+        perf_gate.main(["--strategies", "replicated,pipeline",
                         "--device", "cpu"])
-    assert SHARDING_ITEM in capsys.readouterr().err
+    assert "pipeline" in capsys.readouterr().err
+
+
+def test_storage_per_device_gates_2d_below_replicated(counted):
+    """Every training record carries the bytes a device stores under its
+    plan; only ``replicated``'s carries the count's liveness peak (one
+    replica's whole step), and the cross-gate holds ``2d``'s storage
+    strictly below ``replicated``'s at the same rung."""
+    counts, _ = counted
+    recs = {s: perf_gate.predict_rung(RUNG, s, "float32", counted=counted)
+            for s in ("replicated", "fsdp", "tensor", "2d")}
+    rep = recs["replicated"]["storage_per_device"]
+    # replicated stores the count's resident parameters and buffers whole
+    assert rep["params_bytes"] + rep["buffers_bytes"] == \
+        counts.resident["params"]
+    assert 0 < rep["optimizer_bytes"] < rep["params_bytes"]
+    assert "hbm" in recs["replicated"]
+    for s in ("fsdp", "tensor", "2d"):
+        got = recs[s]["storage_per_device"]
+        assert "hbm" not in recs[s], s
+        assert got["buffers_bytes"] == rep["buffers_bytes"], s
+        assert got["total_bytes"] < rep["total_bytes"], s
+        assert got["total_bytes"] == (got["params_bytes"]
+                                      + got["optimizer_bytes"]
+                                      + got["buffers_bytes"]), s
+    # the model axis splits only the targets: tensor stores their share
+    meta = counts.meta
+    tp = meta["target_param_bytes"]
+    assert rep["params_bytes"] - recs["tensor"]["storage_per_device"][
+        "params_bytes"] == tp // 2
+    rows = perf_gate.storage_cross_rows(list(recs.values()))
+    assert [(r["key"], r["gate"]) for r in rows] == [
+        (f"{RUNG}_storage_cross_strategy", "PASS")]
+    two_d = copy.deepcopy(recs["2d"])
+    two_d["storage_per_device"]["total_bytes"] = rep["total_bytes"]
+    rows = perf_gate.storage_cross_rows([recs["replicated"], two_d])
+    assert rows[0]["gate"] == "FAIL"
+    assert "not strictly below" in rows[0]["error"]
+    assert perf_gate.storage_cross_rows([recs["2d"]]) == []
 
 
 def _ladder_line(rng, rung, precision, kind="NVIDIA H100 80GB HBM3",

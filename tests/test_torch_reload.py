@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -366,7 +367,8 @@ def test_main_serves_a_checkpoint_and_reloads(logdir, tmp_path):
          logdir, "--step", "1", "--device", "cpu", "--port", "0", "--addr",
          "127.0.0.1", "--port-file", port_file, "--config",
          *SMOKE_OVERRIDES, *SERVE, "SERVE.RELOAD_POLL_SEC=0"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         deadline = time.monotonic() + 120
         health = None

@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -326,8 +327,8 @@ def _launch(logdir, total_steps):
          "--synthetic", "--logdir", logdir, "--total-steps",
          str(total_steps), "--config", *SMOKE_OVERRIDES, *RUN,
          "TRAIN.STEPS_PER_EPOCH=1000"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def _logged_steps(logdir):

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -343,7 +344,8 @@ def test_main_serves_and_drains_on_sigterm(tmp_path):
         [sys.executable, "-m", "eksml_tpu_torch.serve", "--random-params",
          "--device", "cpu", "--port", "0", "--addr", "127.0.0.1",
          "--port-file", port_file, "--config", *overrides],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         deadline = time.monotonic() + 120
         health = None

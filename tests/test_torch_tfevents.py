@@ -123,7 +123,8 @@ def fit_logdir(tmp_path_factory):
     proc = subprocess.run(
         [sys.executable, "-c", FIT_WITHOUT_TENSORBOARD, logdir,
          json.dumps(TRAIN_ITEMS)], cwd=REPO, capture_output=True,
-        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO TENSORBOARD" in proc.stdout
     return logdir

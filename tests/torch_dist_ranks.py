@@ -15,7 +15,12 @@ checkpoint restored at world 2, and the refusal with
 ``run_evaluation`` with the ground-truth stub (square and bucketed), with
 the model, and with a predict that raises on rank 1 only.
 ``fsdp_eval``: ``Trainer._run_eval`` under ``fsdp`` with
-``PREPROC.BUCKETS`` over shards of unequal batch counts.  Each rank
+``PREPROC.BUCKETS`` over shards of unequal batch counts.  ``sharding``
+(4 ranks, ``tests/test_torch_sharding.py``): one step under each plan of
+``inputs["runs"]`` (``tensor``, ``2d``, custom rules, bf16 storage),
+each rank's parameter shards and their placements, then a ``2d``
+``Trainer`` step checkpointed at world 4 and restored there under each
+plan of ``inputs["restore"]``.  Each rank
 writes ``<workdir>/<scenario>-rank<r>.pt``.  ``exporter`` (no inputs):
 one step of ``Trainer.fit`` per rank in one shared logdir with the
 telemetry exporter on the fixed port ``$EKSML_TEST_HTTP_PORT`` and a
@@ -82,8 +87,7 @@ def scenario_step(inputs, rank):
                      else p.grad).clone()
                  for n, p in model.named_parameters() if p.grad is not None}
         step = make_train_step(wrapped, opt, sched,
-                               float(cfg.TRAIN.GRADIENT_CLIP),
-                               norm_group=plan.norm_group)
+                               float(cfg.TRAIN.GRADIENT_CLIP))
         metrics = step(batch, pri, 0)
         out[strategy] = {
             "local_losses": {k: float(v) for k, v in losses.items()},
@@ -122,6 +126,79 @@ def scenario_step(inputs, rank):
         except AssertionError as e:
             sync[what] = str(e)
     out["sync"] = sync
+    return out
+
+
+def scenario_sharding(inputs, rank, workdir):
+    """One ``make_train_step`` per plan of ``inputs["runs"]`` (name →
+    extra config items) on this rank's image: the raw gradients (read
+    whole where the step's ``global_norm`` takes them, before the clip),
+    the metrics, the whole updated state, and each parameter's local
+    shape and placements.  Then a ``2d`` ``Trainer`` step from the same
+    weights, checkpointed at world 4, and its live state."""
+    import eksml_tpu_torch.train as train_mod
+    from eksml_tpu_torch.train import cast_for_storage, global_norm
+
+    out = {}
+    b = inputs["per_rank"]
+    batch = own_rows(inputs["batch"], rank, b)
+    pri = own_rows(inputs["priorities"], rank, b)
+    for name, extra in inputs["runs"].items():
+        cfg = rank_cfg(inputs["overrides"], *extra)
+        model = MaskRCNN.from_config(cfg)
+        model.load_state_dict(inputs["params"])
+        cast_for_storage(model, cfg.TRAIN.PARAM_DTYPE)
+        model.train()
+        plan = ShardingPlan.from_config(cfg)
+        wrapped = plan.wrap(model)
+        opt, sched = make_optimizer(model, cfg)
+        names = {id(p): n for n, p in model.named_parameters()}
+        grads = {}
+
+        def norm_and_keep(tensors, grads=grads, names=names,
+                          params=[p for g in opt.param_groups
+                                  for p in g["params"]]):
+            for p, g in zip(params, tensors):
+                grads[names[id(p)]] = (g.full_tensor() if hasattr(
+                    g, "full_tensor") else g).detach().clone()
+            return global_norm(tensors)
+
+        train_mod.global_norm = norm_and_keep
+        try:
+            metrics = make_train_step(wrapped, opt, sched,
+                                      float(cfg.TRAIN.GRADIENT_CLIP))(
+                batch, pri, 0)
+        finally:
+            train_mod.global_norm = global_norm
+        out[name] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads,
+            "params": {k: v.clone() for k, v in
+                       full_state_dict(model).items()},
+            # each parameter's local shape and the dims it is Shard on
+            "local": {n: (tuple(p.to_local().shape),
+                          tuple(x.dim for x in p.placements if x.is_shard()))
+                      if hasattr(p, "to_local") else (tuple(p.shape), ())
+                      for n, p in model.named_parameters()},
+            "describe": plan.describe(),
+            "mesh": (plan.mesh_shape, plan.mesh_axes),
+            "explain": plan.explain(model),
+            # ranks holding different shards are one replica
+            "in_sync": assert_replicas_in_sync(model.state_dict()),
+        }
+    cfg = rank_cfg(inputs["overrides"], *inputs["save"])
+    w4 = os.path.join(workdir, "w4_2d")
+    trainer, rows = fit_one(cfg, w4, inputs["params"],
+                            own_rows(inputs["np_batch"], rank, b))
+    out["saved"] = {"rows": rows, "live": state_of(trainer),
+                    "topology": trainer.ckpt.topology,
+                    "describe": trainer.plan.describe()}
+    trainer.close()
+    distributed.barrier()
+    # the same step restored at world 4 under each other plan
+    out["restored"] = {name: restore(rank_cfg(inputs["overrides"], *extra),
+                                     w4)
+                       for name, extra in inputs["restore"].items()}
     return out
 
 
@@ -368,6 +445,7 @@ def scenario_exporter(rank, workdir):
 
 def main():
     scenario, workdir = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
     assert distributed.initialize_from_env(device="cpu")
     rank = distributed.process_index()
     if scenario == "exporter":
@@ -385,6 +463,8 @@ def main():
             out = scenario_eval(inputs, rank)
         elif scenario == "fsdp_eval":
             out = scenario_fsdp_eval(inputs, rank, workdir)
+        elif scenario == "sharding":
+            out = scenario_sharding(inputs, rank, workdir)
         else:
             out = scenario_resume(inputs, rank, workdir)
         out["world"] = distributed.process_count()
