@@ -5501,6 +5501,53 @@ def observe_artifacts(art: str, workdir: str, prediction: dict) -> str:
     return out
 
 
+#: the lint step's bound on its wall time (seconds)
+LINT_BUDGET_S = 10.0
+
+
+def lint_step() -> dict:
+    """The port's eksml-lint over the checked-out tree, as a user runs
+    it (``python -m eksml_tpu_torch.tools.eksml_lint --json``, all
+    thirteen rules), in a process of its own under ``-X importtime``:
+    it exits 0 with no finding that is neither suppressed nor
+    baselined, it imports no ``jax`` and no ``eksml_tpu`` module (the
+    card's machine has no JAX: this is the real isolation check), and
+    it takes under :data:`LINT_BUDGET_S`.  Prints the findings,
+    suppressions and baselined entries by rule and the wall time."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "eksml_tpu_torch.tools.eksml_lint", "--json"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    payload = json.loads(proc.stdout)
+    loaded = [ln.rsplit("|", 1)[-1].strip()
+              for ln in proc.stderr.splitlines()
+              if ln.startswith("import time:")]
+    assert "eksml_tpu_torch.analysis" in loaded, proc.stderr[-2000:]
+    foreign = sorted(m for m in loaded
+                     if m.split(".")[0] in ("jax", "eksml_tpu"))
+    assert not foreign, foreign
+    assert payload["findings"] == [], payload["findings"]
+    counts = {}
+    for kind in ("findings", "suppressed", "baselined"):
+        for f in payload[kind]:
+            counts.setdefault(f["rule"], {"findings": 0, "suppressed": 0,
+                                          "baselined": 0})[kind] += 1
+    log(f"[reports] eksml-lint over {payload['checked_files']} files of "
+        f"eksml_tpu_torch/ ({wall:.2f} s wall, {len(loaded)} modules "
+        f"imported, none of jax or eksml_tpu): "
+        f"{len(payload['findings'])} finding(s), "
+        f"{len(payload['suppressed'])} suppressed, "
+        f"{len(payload['baselined'])} baselined; by rule: "
+        + json.dumps(counts, sort_keys=True))
+    assert wall < LINT_BUDGET_S, wall
+    return {"wall_s": wall, "checked_files": payload["checked_files"],
+            "by_rule": counts, "modules": len(loaded)}
+
+
 def phase_reports(kernels, workdir: str, observed=None, operator_dirs=(),
                   fleet_dir=None, ladder=None, device: str = "cuda"):
     """The port's offline layer on this call's runs: ``perf_gate`` on the
@@ -5514,14 +5561,17 @@ def phase_reports(kernels, workdir: str, observed=None, operator_dirs=(),
     Every section whose artifact exists renders from it, the observe
     report's goodput ratio is ``build_ledger``'s, its calibration
     table's measured steps are the ladder lines'; the roofline's
-    calibration on the card and the observe run's effective MFU."""
+    calibration on the card and the observe run's effective MFU.  First,
+    the port's eksml-lint over its own tree (:func:`lint_step`)."""
     from eksml_tpu_torch.profiling.predict import load_json
     from eksml_tpu_torch.telemetry.goodput import build_ledger
     from eksml_tpu_torch.tools import goodput_report, perf_gate, run_report
 
+    lint = lint_step()
     art = ladder or os.path.join(workdir, "ladder")
     os.makedirs(art, exist_ok=True)
     out = report_gate(kernels, art, device)
+    out["lint"] = lint
     cal = perf_gate.calibration(art)
     out["calibration"] = cal
     for pt in cal["points"]:

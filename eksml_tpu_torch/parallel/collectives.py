@@ -35,7 +35,8 @@ def cross_host_sum(values: Mapping[str, float]) -> Dict[str, torch.Tensor]:
     if dist.is_initialized():
         vec = vec.to(collective_device())
         dist.all_reduce(vec)
-        vec = vec.cpu()
+        # callers sum at a sync period (the SIGTERM agreement), not per step
+        vec = vec.cpu()  # eksml-lint: disable=host-sync
     return {k: vec[i] for i, k in enumerate(keys)}
 
 

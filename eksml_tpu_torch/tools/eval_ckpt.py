@@ -89,7 +89,8 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001 — pruned or missing step
             print(f"eval_ckpt: restore of step {args.step} failed ({e!r}); "
                   f"available: {ckpt.all_steps()}", file=sys.stderr)
-            return 1
+            # one process, no process group: the eval's gather never runs
+            return 1  # eksml-lint: disable=collective-order
         at_step = args.step
     model.eval()
 

@@ -40,11 +40,15 @@ tool folds them into one reviewable report:
   (``trace-host<i>.json``, TELEMETRY.TRACING), the cross-host merge
   names the dominant span of each outlier step — "step 412: host 3,
   1.9 s in data_wait" — via ``trace_summary.merge_host_traces``.
-- **Static SPMD and concurrency cross-links**: the reference audits its
-  tree with eksml-lint when the logdir holds watchdog hang reports.
-  The port has no lint of ``torch.distributed`` yet (ROADMAP.md
-  Queue 1, item 10): with hang reports these sections name the newest
-  report, its stalled phase and stack frames, and point at that item.
+- **Static SPMD and concurrency cross-links**: when the logdir holds
+  watchdog hang reports, the port's eksml-lint
+  (``eksml_tpu_torch/analysis``) audits its tree, and each
+  ``collective-order`` / ``lock-order`` / ``blocking-under-lock``
+  finding is matched to the newest report: a **yes** when a function on
+  the finding's root→sink chain is a stalled stack frame of the report
+  (or, for ``collective-order``, names its stalled phase) — the hang
+  observed live and the divergence predicted statically, joined in one
+  table.
 - **Modeled cost**: the attribution component table, when the run
   banked a profile.
 - **Predicted vs measured**: the H100 predictions
@@ -77,11 +81,6 @@ from eksml_tpu_torch.profiling.predict import (CHIP_SPECS, calibrate,
                                                calibration_points)
 from eksml_tpu_torch.telemetry.goodput import BADPUT_BUCKETS, build_ledger
 from eksml_tpu_torch.tools import goodput_report, trace_summary
-
-#: where the port's lint of torch.distributed is planned (the reference's
-#: hang cross-links read eksml-lint findings)
-LINT_ITEM = "ROADMAP.md Queue 1, item 10"
-
 
 def _read_jsonl(path: str) -> List[Dict]:
     rows = []
@@ -588,30 +587,104 @@ def _stalled_phase(report_path: str) -> Optional[str]:
     return None
 
 
-def _no_lint_lines(rules: str) -> List[str]:
-    return ["", f"Static analysis unavailable: the port has no "
-                f"eksml-lint over `torch.distributed` yet, so no "
-                f"{rules} finding can be matched to this hang "
-                f"({LINT_ITEM})."]
+#: the rules the two hang cross-links read
+CROSS_LINK_RULES = ("collective-order", "lock-order", "blocking-under-lock")
 
 
-def _hang_static_section(logdir: str) -> List[str]:
-    """The reference cross-links a watchdog hang report to a matching
-    static ``collective-order`` finding.  The port has no such lint yet
-    (:data:`LINT_ITEM`): with hang reports this names the newest one
-    and its stalled phase and points at that item; without any it
-    degrades as the reference does."""
+def _scoped_lint(rules: List[str], lint_root: Optional[str] = None):
+    """The port's eksml-lint findings (incl. baselined) over
+    ``<lint_root>/eksml_tpu_torch`` (default: the tree this module is
+    in) scoped to *rules*, or an error string — the shared machinery of
+    both cross-link sections (:func:`render_report` lints once for
+    both, and only when the logdir holds hang reports)."""
+    try:
+        from eksml_tpu_torch.analysis import run_lint
+
+        result = run_lint(rules=rules, repo_root=lint_root)
+        return list(result.findings) + list(result.baselined), None
+    except Exception as e:  # noqa: BLE001 — partial evidence is fine
+        return [], f"Static analysis unavailable: {e!r}"
+
+
+def _lint_once(lint_root: Optional[str] = None):
+    """``lint(rules) -> (findings, error)`` over :data:`CROSS_LINK_RULES`,
+    linting the tree at its first call only."""
+    done: list = []
+
+    def lint(rules: List[str]):
+        if not done:
+            done.append(_scoped_lint(list(CROSS_LINK_RULES), lint_root))
+        found, err = done[0]
+        return [f for f in found if f.rule in rules], err
+
+    return lint
+
+
+def _chain_str(fnd) -> str:
+    return " → ".join(f"{c['path']}:{c['line']} {c['name']}"
+                      for c in (fnd.chain or [])) or "-"
+
+
+def _chain_hit(fnd, frames: List[Tuple[str, str, int]],
+               phase: Optional[str] = None) -> bool:
+    """Whether a stalled stack frame sits in a function on ``fnd``'s
+    chain (by name or by file:line), or the chain names ``phase``."""
+    funcs = {f for f, _, _ in frames}
+    files_lines = {(b, n) for _, b, n in frames}
+    for c in fnd.chain or []:
+        name = c.get("name", "")
+        if phase and phase in name:
+            return True
+        if any(w.rsplit(".", 1)[-1].rstrip("()") in funcs
+               for w in name.split()) or (
+                os.path.basename(c.get("path", "")),
+                c.get("line")) in files_lines:
+            return True
+    return False
+
+
+def _hang_static_section(logdir: str, lint=None) -> List[str]:
+    """Cross-link a watchdog hang report to a matching static
+    ``collective-order`` finding of the port's eksml-lint.  The finding
+    and the hang are the same bug: a rank-divergent path into (or
+    around) a ``torch.distributed`` collective.  When a function on a
+    finding's root→collective chain is one of the report's stalled
+    stack frames, or names its stalled phase, the report says so —
+    post-mortem and prevention joined in one table."""
     lines = ["## Static SPMD cross-link (watchdog ↔ eksml-lint)"]
     reports = _hang_reports(logdir)
     if not reports:
         lines += ["", "No watchdog hang reports in this logdir — "
-                      "nothing to cross-link."]
+                      "nothing to cross-link.  (`python -m "
+                      "eksml_tpu_torch.tools.eksml_lint --rules "
+                      "collective-order --json` audits the tree on "
+                      "demand.)"]
         return lines
     phase = _stalled_phase(reports[-1])
+    frames = _stalled_stack_frames(reports[-1])
     lines += ["", f"{len(reports)} hang report(s); newest "
                   f"`{os.path.basename(reports[-1])}` stalled in "
                   f"phase `{phase or '?'}`."]
-    return lines + _no_lint_lines("`collective-order`")
+    findings, err = (lint or _lint_once())(["collective-order"])
+    if err:
+        lines += ["", err]
+        return lines
+    if not findings:
+        lines += ["", "No static `collective-order` findings in the "
+                      "tree — this hang is not the statically-"
+                      "checkable divergence class (look at the "
+                      "stalled phase's stack in the report; a "
+                      "data-dependent skip or an external peer death "
+                      "are the usual suspects)."]
+        return lines
+    lines += ["", "| finding | chain | matches stalled phase or stack |",
+              "|---|---|---|"]
+    for fnd in findings:
+        hit = _chain_hit(fnd, frames, phase)
+        lines.append(f"| {fnd.path}:{fnd.line} "
+                     f"| {_chain_str(fnd)} "
+                     f"| {'**yes**' if hit else 'no'} |")
+    return lines
 
 
 def _stalled_stack_frames(report_path: str) -> List[Tuple[str, str, int]]:
@@ -636,18 +709,22 @@ def _stalled_stack_frames(report_path: str) -> List[Tuple[str, str, int]]:
     return frames
 
 
-def _concurrency_section(logdir: str) -> List[str]:
-    """The reference matches a hang report's stalled THREAD STACKS to
-    ``lock-order``/``blocking-under-lock`` findings.  The port's tree is
-    held to those rules by its tests, but no finding is read here
-    (:data:`LINT_ITEM`): with hang reports this names the newest one
-    and its stalled frames and points at that item; without any it
-    degrades as the reference does."""
+def _concurrency_section(logdir: str, lint=None) -> List[str]:
+    """Cross-link a watchdog hang report's stalled THREAD STACKS to a
+    matching ``lock-order``/``blocking-under-lock`` finding of the
+    port's eksml-lint — the thread-topology companion of the SPMD
+    cross-link above.  A hang whose stacks sit inside a function named
+    by a concurrency finding's chain is the statically-predicted
+    deadlock observed live.  Degrades to a pointer with no reports, and
+    to an explicit "not this class" note with a clean tree."""
     lines = ["## Concurrency cross-link (watchdog ↔ eksml-lint v3)"]
     reports = _hang_reports(logdir)
     if not reports:
         lines += ["", "No watchdog hang reports in this logdir — "
-                      "nothing to cross-link."]
+                      "nothing to cross-link.  (`python -m "
+                      "eksml_tpu_torch.tools.eksml_lint --rules "
+                      "lock-order,blocking-under-lock --json` audits "
+                      "the tree's thread topology on demand.)"]
         return lines
     frames = _stalled_stack_frames(reports[-1])
     lines += ["", f"{len(reports)} hang report(s); newest "
@@ -657,8 +734,28 @@ def _concurrency_section(logdir: str) -> List[str]:
         lines += ["", "Innermost stalled frames: " + ", ".join(
             f"`{func}` ({base}:{line})"
             for func, base, line in frames[-5:])]
-    return lines + _no_lint_lines(
-        "`lock-order`/`blocking-under-lock`")
+    findings, err = (lint or _lint_once())(["lock-order",
+                                             "blocking-under-lock"])
+    if err:
+        lines += ["", err]
+        return lines
+    if not findings:
+        lines += ["", "No static `lock-order`/`blocking-under-lock` "
+                      "findings in the tree — this hang is not the "
+                      "statically-checkable thread-topology class "
+                      "(check the stalled stacks against the data-"
+                      "pipeline section; an external peer or a "
+                      "wedged collective are the usual suspects)."]
+        return lines
+    lines += ["", "| finding | chain | matches stalled stack |",
+              "|---|---|---|"]
+    for fnd in findings:
+        hit = _chain_hit(fnd, frames)
+        rule = getattr(fnd, "rule", "?")
+        lines.append(f"| {rule}: {fnd.path}:{fnd.line} "
+                     f"| {_chain_str(fnd)} "
+                     f"| {'**yes**' if hit else 'no'} |")
+    return lines
 
 
 def _predictions(artifacts_dir: str, serve: Optional[bool] = False
@@ -960,10 +1057,14 @@ def _memory_section(artifacts_dir: str) -> List[str]:
 
 def render_report(logdir: str, attribution: Optional[str] = None,
                   max_events: int = 100,
-                  artifacts_dir: Optional[str] = None) -> str:
+                  artifacts_dir: Optional[str] = None,
+                  lint_root: Optional[str] = None) -> str:
     """The report of ``logdir``; predictions, ladder lines and serving
-    rounds are read from ``artifacts_dir`` (default: the logdir)."""
+    rounds are read from ``artifacts_dir`` (default: the logdir); the
+    hang cross-links lint ``<lint_root>/eksml_tpu_torch`` (default: the
+    tree this module is in)."""
     artifacts_dir = artifacts_dir or logdir
+    lint = _lint_once(lint_root)
     segments = load_metrics(logdir)
     events = load_events(logdir)
     lines = [f"# Run report — `{logdir}`", "",
@@ -983,8 +1084,8 @@ def render_report(logdir: str, attribution: Optional[str] = None,
             _autoscale_section(logdir),
             _deployments_section(events),
             _slow_steps_section(logdir),
-            _hang_static_section(logdir),
-            _concurrency_section(logdir),
+            _hang_static_section(logdir, lint),
+            _concurrency_section(logdir, lint),
             _attribution_section(logdir, attribution),
             _predicted_section(artifacts_dir),
             _comms_section(artifacts_dir),

@@ -965,8 +965,9 @@ class Trainer:
                 period = int(res.NAN_CHECK_PERIOD)
                 if (ckpt_step or (period > 0 and step % period == 0)
                         or (period == 0 and log_step)):
-                    action = sentinel.observe(
-                        step, float(metrics["total_loss"]))
+                    # the sentinel's read: NAN_CHECK_PERIOD, checkpoint steps
+                    loss = float(metrics["total_loss"])  # eksml-lint: disable=host-sync
+                    action = sentinel.observe(step, loss)
                     if action == ROLLBACK:
                         t_rb = time.perf_counter()
                         good = self._rollback(sentinel, step, watchdog)
@@ -985,7 +986,8 @@ class Trainer:
                 if log_step:
                     # where the host waits for the card on log steps
                     with telemetry.span("host_metrics", step=step):
-                        row = {k: float(v) for k, v in metrics.items()}
+                        # the log step's loss read (LOG_PERIOD cadence)
+                        row = {k: float(v) for k, v in metrics.items()}  # eksml-lint: disable=host-sync
                     now = time.perf_counter()
                     dt = max(now - t_last, 1e-9)
                     row["images_per_sec"] = (batch["images"].shape[0]
@@ -1517,7 +1519,9 @@ def main(argv=None) -> int:
     except BaseException:
         if started:
             shutdown()
-        raise
+        # the rank exits nonzero; the launcher (launch.py) stops every
+        # other rank at once, so none waits in the restore's broadcast
+        raise  # eksml-lint: disable=collective-order
     log.info("rank %d of %d on %s", trainer.rank, trainer.world,
              trainer.device)
     try:

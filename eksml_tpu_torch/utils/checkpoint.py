@@ -91,7 +91,8 @@ def snapshot_to_host(obj: Any) -> Any:
 
     out = walk(obj)
     for dev in set(cuda):
-        torch.cuda.synchronize(dev)
+        # checkpoint steps only: the copies must land before the write
+        torch.cuda.synchronize(dev)  # eksml-lint: disable=host-sync
     return out
 
 

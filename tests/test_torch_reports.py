@@ -255,16 +255,25 @@ def test_merge_host_traces_equals_the_reference(logdir):
         ref_trace.merge_host_traces(logdir)
 
 
-def test_hang_reports_point_at_the_lint_item(tmp_path):
-    """With a hang report the cross-links name the report, its stalled
-    phase and frames, and the roadmap item; without one they say there
-    is nothing to cross-link, as the reference does."""
-    path = str(tmp_path)
+def _hang_report(path, frame):
     with open(os.path.join(path, "hang_report_11_1.txt"), "w") as f:
         f.write("stalled phase: train_step\n--- thread MainThread\n"
                 '  File "/x/eksml_tpu_torch/train.py", line 900, in fit\n'
-                '  File "/x/torch/distributed/c10d.py", line 12, in '
-                "all_reduce\n")
+                + frame)
+
+
+def test_hang_reports_point_at_the_lint_item(tmp_path):
+    """With a hang report the cross-links name the report, its stalled
+    phase and frames, and match them to the port's eksml-lint findings:
+    over the clean port tree neither section has a finding to match
+    (the hang is not the statically-checkable class); over a tree with a
+    seeded ``collective-order`` finding, a stalled frame in a function
+    on the finding's chain is a **yes** row.  Without a report there is
+    nothing to cross-link, as the reference says."""
+    path = str(tmp_path / "run")
+    os.makedirs(path)
+    _hang_report(path, '  File "/x/torch/distributed/c10d.py", line 12, '
+                       "in all_reduce\n")
     rep = sections(run_report.render_report(path))
     spmd = "\n".join(rep["Static SPMD cross-link (watchdog ↔ eksml-lint)"])
     conc = "\n".join(rep["Concurrency cross-link (watchdog ↔ "
@@ -272,8 +281,42 @@ def test_hang_reports_point_at_the_lint_item(tmp_path):
     assert "stalled in phase `train_step`" in spmd
     assert "carries 2 stalled stack frame(s)" in conc
     assert "`all_reduce` (c10d.py:12)" in conc
-    for text in (spmd, conc):
-        assert "ROADMAP.md Queue 1, item 10" in text
+    assert "No static `collective-order` findings in the tree — this " \
+        "hang is not the statically-checkable divergence class" in spmd
+    assert "No static `lock-order`/`blocking-under-lock` findings in " \
+        "the tree — this hang is not the statically-checkable " \
+        "thread-topology class" in conc
+
+    tree = tmp_path / "tree" / "eksml_tpu_torch"
+    tree.mkdir(parents=True)
+    (tree / "__init__.py").write_text("")
+    (tree / "comm.py").write_text(
+        "import torch.distributed as dist\n\n\n"
+        "def gather_all(x):\n"
+        "    dist.all_reduce(x)\n"
+        "    return x\n\n\n"
+        "def log_step(x):\n"
+        "    if dist.get_rank() == 0:\n"
+        "        return gather_all(x)\n"
+        "    return x\n")
+    stalled = str(tmp_path / "stalled")
+    os.makedirs(stalled)
+    _hang_report(stalled, '  File "/x/eksml_tpu_torch/comm.py", line 5, '
+                          "in gather_all\n")
+    rep = sections(run_report.render_report(
+        stalled, lint_root=str(tmp_path / "tree")))
+    spmd = rep["Static SPMD cross-link (watchdog ↔ eksml-lint)"]
+    assert ("| eksml_tpu_torch/comm.py:11 | eksml_tpu_torch/comm.py:11 "
+            "gather_all → eksml_tpu_torch/comm.py:5 all_reduce "
+            "| **yes** |") in spmd
+    other = str(tmp_path / "other")
+    os.makedirs(other)
+    _hang_report(other, '  File "/x/eksml_tpu_torch/data/loader.py", '
+                        "line 40, in _produce\n")
+    rep = sections(run_report.render_report(
+        other, lint_root=str(tmp_path / "tree")))
+    assert rep["Static SPMD cross-link (watchdog ↔ eksml-lint)"][-1] \
+        .endswith("| no |")
     empty = sections(run_report.render_report(str(tmp_path / "none")))
     assert empty["Static SPMD cross-link (watchdog ↔ eksml-lint)"][1] \
         .startswith("No watchdog hang reports in this logdir")
