@@ -189,6 +189,12 @@ reports — the port's offline layer (``eksml_tpu_torch/tools``) on this
              card (scale per line, ``model_error_pct``) and the observe
              run's effective MFU.
 
+tools   — the port's offline tools in this process: ``op_microbench``
+             at the production shapes (1344², batch 4, pre-NMS 2000, all
+             seven ops) on CUDA tensors, ``bench_loader`` for 6 batches,
+             and ``convergence_run`` at SMOKE widths for 4 steps with its
+             eval (launches 3 / 2 / 8 per step and 2 per eval batch).
+
 Then it prints one JSON line of kernel records, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.  Whether the phases
 pass or fail, no process of the run outlives it: the script is the child
@@ -231,7 +237,7 @@ PHASES = ("build", "kernel", "serve", "reference", "profile", "train",
           "train_reference", "eval",
           "eval_reference", "coco", "train_bf16", "serve_bf16", "cascade",
           "variants_reference", "observe", "roofline", "autotune", "charts",
-          "reports")
+          "reports", "tools")
 
 # predict shapes at the 1344² canvas: P2..P5 and the two ROIAlign calls
 CANVAS = 1344
@@ -1747,7 +1753,7 @@ def raw_rows(stable, canary, bank, n: int = 4):
 
 
 def phase_fleet(kernels, seed: int, workdir: str, run: str,
-                device: str = "cuda"):
+                device: str = "cuda", chart_command_run: bool = True):
     """The serve chart's stable and canary tracks on the lifecycle
     phase's checkpoints (``run``: steps 2-5), in this process, at the
     chart's ``--config`` (bf16, one 1344² bucket, rungs 1 and 4): the load
@@ -1755,8 +1761,11 @@ def phase_fleet(kernels, seed: int, workdir: str, run: str,
     bank at both, the promotion controller to a promote and to a
     rollback; both tracks then on one step, the run's step 5 and a seeded
     init written as step 6 (whose raw outputs are finite, unlike the
-    trained steps'), for the drift of identical weights; then the chart's
-    command as a subprocess on the card."""
+    trained steps'), for the drift of identical weights; then, with
+    ``chart_command_run``, the chart's command as a subprocess on the card
+    (the charts phase runs the same command, with the same checks and its
+    launches, on the optimized chart's run: a full run starts it there
+    only)."""
     import torch
 
     from eksml_tpu_torch import telemetry
@@ -1950,6 +1959,10 @@ def phase_fleet(kernels, seed: int, workdir: str, run: str,
         f"events-hostcanary.jsonl {len(ev['canary'])}, events-hostcd.jsonl "
         f"{[e['kind'] for e in ev['cd']]}, canary-host0.jsonl {verdicts}")
 
+    if not chart_command_run:
+        log("[fleet] the chart's command as a subprocess: run by the charts "
+            "phase")
+        return out
     # the chart's command as a subprocess: only the logdir and the port
     # changed
     port_file = os.path.join(workdir, "fleet-serve.port")
@@ -5655,6 +5668,117 @@ def operator_dirs(workdir: str) -> list:
 # ---------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------
+# tools: the offline tools (op microbench, loader bench, convergence run)
+# ---------------------------------------------------------------------
+
+#: timed calls of each op of the microbench at the production shapes
+#: (the ``CANVAS``, ``BATCH`` and the RPN's training pre-NMS top-k)
+TOOLS_ITERS = 5
+TOOLS_PRE_NMS = 2000
+#: timed batches of the loader bench (after its two warm ones)
+TOOLS_LOADER_BATCHES = 6
+#: the convergence run's smoke: steps, canvas, train and val images
+TOOLS_STEPS = 4
+TOOLS_SIZE = 128
+TOOLS_IMAGES = (8, 4)
+
+
+def _tensors(x):
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return [x]
+
+
+def phase_tools(kernels, workdir: str, device: str = "cuda"):
+    """The port's offline tools in this process, each through its
+    ``main``: ``op_microbench`` at the production shapes (``CANVAS``,
+    ``BATCH``, ``TOOLS_PRE_NMS``: 1344², batch 4, pre-NMS 2000; every
+    op, ``TOOLS_ITERS`` timed calls) on inputs
+    that lie on ``device``; ``bench_loader`` for ``TOOLS_LOADER_BATCHES``
+    batches at its defaults; ``convergence_run`` at SMOKE widths for
+    ``TOOLS_STEPS`` steps with ``--no-check``, its kernels' launches
+    (3 / 2 / 8 per step, 2 per eval batch) asserted from the line it
+    logs.  The global config is restored after the run."""
+    import torch
+
+    from eksml_tpu_torch.config import SMOKE_OVERRIDES, config
+    from eksml_tpu_torch.tools import (bench_loader, convergence_run,
+                                       op_microbench)
+
+    out = {}
+    t0 = time.perf_counter()
+    on = []
+
+    def on_inputs(ops):
+        for name, (_, args) in ops.items():
+            on.extend((name, t.device.type) for t in _tensors(args))
+
+    micro = op_microbench.main(
+        ["--iters", str(TOOLS_ITERS), "--image-size", str(CANVAS),
+         "--batch", str(BATCH), "--pre-nms", str(TOOLS_PRE_NMS),
+         "--device", device], on_inputs=on_inputs)
+    assert on and all(d == device for _, d in on), on
+    want_ops = op_microbench.OPS.split(",")
+    assert list(micro["results"]) == want_ops, micro["results"]
+    bad = {k: v for k, v in micro["results"].items()
+           if not isinstance(v, float)}
+    assert not bad, bad
+    p = micro["params"]
+    assert (p["image_size"], p["batch"], p["pre_nms"]) == (
+        CANVAS, BATCH, TOOLS_PRE_NMS), p
+    out["op_microbench"] = {"results": micro["results"],
+                            "params": micro["params"],
+                            "wall_s": time.perf_counter() - t0}
+    log(f"[tools] op_microbench at {micro['params']} on {len(on)} "
+        f"{device} tensors: {json.dumps(micro['results'])} ms per call; "
+        f"{out['op_microbench']['wall_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    loader = bench_loader.main(["--batches", str(TOOLS_LOADER_BATCHES)])
+    assert loader["value"] > 0, loader
+    out["bench_loader"] = {**loader, "wall_s": time.perf_counter() - t0}
+    log(f"[tools] bench_loader: {json.dumps(loader)}; "
+        f"{out['bench_loader']['wall_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    saved = config.to_dict()      # the run sets the global config
+    before = {k.name: k.launches for k in kernels}
+    try:
+        conv = convergence_run.main(
+            ["--device", device, "--steps", str(TOOLS_STEPS), "--size",
+             str(TOOLS_SIZE), "--num-train", str(TOOLS_IMAGES[0]),
+             "--num-val", str(TOOLS_IMAGES[1]), "--batch-size", "2",
+             "--no-check", "--config", *SMOKE_OVERRIDES],
+            workdir=workdir)
+        eval_batch = int(config.TEST.EVAL_BATCH_SIZE)
+    finally:
+        config.freeze(False)
+        config.from_dict(saved)
+        config.freeze()
+    launches = {k.name: k.launches - before[k.name] for k in kernels}
+    eval_batches = -(-TOOLS_IMAGES[1] // eval_batch)
+    want = {kernels.fwd.name: 3 * TOOLS_STEPS + 2 * eval_batches,
+            kernels.bwd.name: 2 * TOOLS_STEPS,
+            kernels.copy.name: 2 * len(LEVEL_STRIDES) * TOOLS_STEPS}
+    assert conv["launches"] == launches == want, (conv["launches"],
+                                                   launches, want)
+    assert [c["step"] for c in conv["curve"]][-1] == TOOLS_STEPS, conv
+    assert all(np.isfinite(c["total_loss"]) for c in conv["curve"]), conv
+    out["convergence_run"] = {
+        k: conv[k] for k in ("steps", "train_seconds", "early_loss",
+                             "late_loss", "bbox_AP", "segm_AP", "device",
+                             "launches")}
+    out["convergence_run"]["wall_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    log(f"[tools] convergence_run (SMOKE, {TOOLS_STEPS} steps at "
+        f"{TOOLS_SIZE}², {TOOLS_IMAGES[1]} val images): "
+        f"{json.dumps(out['convergence_run'])}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -5711,7 +5835,7 @@ def drive(args, phases) -> int:
     engine = serve = train = life = dist_out = fleet = operator = None
     ranks = evaluated = eval_ref = coco = None
     bf16 = serve16 = cascade = variants = observed = charts = None
-    roofline = autotune = reports = None
+    roofline = autotune = reports = tools = None
     try:
         if {"serve", "reference", "profile", "lifecycle"} & set(phases):
             engine, serve = timed(walls, "serve", phase_serve,
@@ -5749,7 +5873,8 @@ def drive(args, phases) -> int:
             torch.cuda.empty_cache()
             if "fleet" in phases:
                 fleet = timed(walls, "fleet", phase_fleet, KERNELS,
-                              args.seed, workdir, life["run"])
+                              args.seed, workdir, life["run"],
+                              chart_command_run="charts" not in phases)
             if "operator" in phases:
                 operator = timed(walls, "operator", phase_operator, workdir)
             if "dist" in phases:
@@ -5804,6 +5929,8 @@ def drive(args, phases) -> int:
                 operator_dirs(workdir),
                 life["run"] if fleet is not None else None,
                 roofline["ladder"] if roofline else None)
+        if "tools" in phases:
+            tools = timed(walls, "tools", phase_tools, KERNELS, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f}s; "
@@ -5868,7 +5995,9 @@ def drive(args, phases) -> int:
                                else None),
                     # perf_gate's SMOKE step counted on the card
                     "reports": (reports["launches"][k.name] if reports
-                                else None)},
+                                else None),
+                    # the convergence run's SMOKE steps and eval batch
+                    "tools": tools["launches"][k.name] if tools else None},
                 "max_abs_err": max(r["max_abs_err"] for r in f32),
                 "figure": f"{STEP_CALL}, float32",
                 "ms": main_rec["ms"],
@@ -5973,6 +6102,9 @@ def drive(args, phases) -> int:
     if reports is not None:
         log(f"[reports] on {cards}: " + json.dumps(
             {k: v for k, v in reports.items() if k != "launches"}))
+    if tools is not None:
+        log(f"[tools] on {cards}: " + json.dumps(
+            {k: v for k, v in tools.items() if k != "launches"}))
     print(card, flush=True)
     if set(phases) != set(PHASES):
         return 0

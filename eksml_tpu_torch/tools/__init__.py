@@ -29,7 +29,16 @@
   counted on the CPU (or the card), priced on the H100 roofline,
   compared with the bank in ``artifacts/h100/``;
 - :mod:`bench_gate` — the ladder's fresh lines against banked ones of
-  the same rung, precision and card.
+  the same rung, precision and card;
+- :mod:`make_shapes_coco` — the learnable shapes dataset in COCO layout
+  (the records carry their pixels; JPEGs where PIL imports);
+- :mod:`convergence_run` — a few hundred steps on the shapes dataset and
+  its COCO AP, against the reference's convergence gate;
+- :mod:`op_microbench` — the RPN's NMS, anchor matching and proposals
+  timed alone, the earlier formulations beside them;
+- :mod:`bench_loader` — the images/s one host's loader builds;
+- :mod:`bench_sweep` — the ladder's operating points, each in a
+  subprocess with a timeout, as one artifact.
 
 The reports and gates read ``--artifacts`` / ``--bank``, by default the
 logdir or the port's own bank, never the TPU reference's ``artifacts/``

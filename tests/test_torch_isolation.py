@@ -17,8 +17,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eksml_tpu",
              # the reference's tools, as a package and as the bare
              # module names its script-mode fallbacks import: the port's
-             # reports and gates keep their own copies
-             "tools", "trace_summary", "goodput_report", "perf_gate")
+             # reports, gates and offline tools keep their own copies
+             "tools", "trace_summary", "goodput_report", "perf_gate",
+             "bench", "make_shapes_coco", "convergence_run",
+             "op_microbench", "bench_loader", "bench_sweep")
 
 
 def _sources():
@@ -73,6 +75,23 @@ def test_the_check_catches_the_reference_tools():
     assert forbidden_imports(src) == ["tools", "tools.perf_gate",
                                       "goodput_report", "perf_gate",
                                       "trace_summary"]
+
+
+def test_the_check_catches_the_offline_tools():
+    """The reference's offline tools by their bare names (``bench.py`` at
+    the repository root; ``tools/*.py`` run as scripts put ``tools/`` on
+    the path), never the port's modules of the same names."""
+    src = ("from bench import is_hardware, utcnow\nimport make_shapes_coco\n"
+           "from convergence_run import check_convergence\n"
+           "import op_microbench, bench_loader\nimport bench_sweep\n"
+           "from tools.make_shapes_coco import make_split\n"
+           "from eksml_tpu_torch.tools import bench, bench_sweep\n"
+           "from eksml_tpu_torch.tools.op_microbench import OPS\n"
+           "import eksml_tpu_torch.tools.bench_loader\n"
+           "from eksml_tpu_torch.tools import bench_gate\n")
+    assert forbidden_imports(src) == [
+        "bench", "make_shapes_coco", "convergence_run", "op_microbench",
+        "bench_loader", "bench_sweep", "tools.make_shapes_coco"]
 
 
 def test_host_library_loaders_build_the_ports_own_sources():
